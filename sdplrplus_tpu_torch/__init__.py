@@ -1,0 +1,37 @@
+"""SDPLRPlus in PyTorch and CUDA: the low-rank SDP solver of the JAX
+package ``sdplrplus_tpu`` ported to an NVIDIA H100.
+
+Burer-Monteiro factorization + augmented Lagrangian + L-BFGS + exact
+quartic line search + Lanczos suboptimality bound + dynamic rank
+doubling, with the inner loop of the dense engine as one hand-written
+CUDA kernel (ops/megakernel.py, csrc/megakernel.cu). The entry points
+run on the card unless the caller passes ``device="cpu"``. This package
+imports neither JAX nor ``sdplrplus_tpu``.
+"""
+
+from .config import SolverConfig
+from .problem import SDPProblem, SparseSym, SymLowRank, make_problem, sparse_coo
+from .compile import compile_problem
+from .solver.outer import sdplr, solve
+from .solver.rank import barvinok_pataki
+from .convert import (
+    device_problem_from_numpy,
+    inner_carry_from_numpy,
+    major_carry_from_numpy,
+)
+
+__all__ = [
+    "SolverConfig",
+    "SDPProblem",
+    "SparseSym",
+    "SymLowRank",
+    "make_problem",
+    "sparse_coo",
+    "compile_problem",
+    "sdplr",
+    "solve",
+    "barvinok_pataki",
+    "device_problem_from_numpy",
+    "inner_carry_from_numpy",
+    "major_carry_from_numpy",
+]

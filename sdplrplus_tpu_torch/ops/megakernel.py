@@ -1,0 +1,697 @@
+"""K1: the whole inner L-BFGS loop of the dense engine as one CUDA launch.
+
+Counterpart of the JAX package's ``ops/megakernel.py``, whose Pallas TPU
+kernel ``_make_kernel`` (launched by ``_call_kernel``) this replaces. The
+hand-written Hopper kernel is ``csrc/megakernel.cu`` (CUDA C++ for
+sm_90a, plain C interface, loaded with ``ctypes``; built at first use by
+``utils/build.py``). Its design notes — one cooperative persistent grid
+per inner activation, column slabs per block, every dot batched behind
+one grid-wide barrier and summed in the same fixed order by every block —
+are at the top of that file.
+
+What bounds it: per iteration D·C is 2·rp·n_pad² FP32 FLOPs (25.7 MFLOP
+at n_pad = 896 and rp = 16, about 0.38 µs at 67 TFLOP/s), and C is read
+once per launch from L2. The 2k + 3 grid barriers per iteration set the
+time of this first version, not C.
+
+Layout and contract are those of the JAX kernel: the factor, gradient
+and ring live transposed and rank-padded, (rp, n_pad) and (k·rp, n_pad),
+so each column of the kernel's arrays is one row of R. ``mega_chunk``
+keeps the ``mega_chunk_traced`` contract (megakernel.py:1184-1269):
+R, the L-BFGS state and the multipliers in, (InnerCarry, vio_norm) out.
+On a CUDA tensor it launches the kernel (and counts the launch in
+``K1.launches``); on a CPU tensor it runs ``mega_chunk_plain``, the
+kernel's loop written step by step in torch. It never falls back from
+one to the other.
+
+Eligibility is structural (dense C, equality constraints only, one
+diagonal entry per narrow constraint) plus this layout's limits: n_pad ≤
+2048 and a multiple of 64, padded rank rp ≤ 64, at most 16 ring slots,
+at most 4 low-rank terms with 8 columns in all. That covers n_pad 896
+and 2048 up to the Barvinok–Pataki rank cap (41 at m = 800, 64 at
+m = 2000). C then takes at most 16.8 MB (f32) or 33.6 MB (f64) of the
+50 MB L2. The kernel also checks at launch that its grid is co-resident.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .device import DeviceProblem
+
+MAX_LR_TERMS = 4
+MAX_LR_COLS = 8
+MAX_N_PAD = 2048
+MAX_RP = 64
+MAX_K = 16
+N_CHUNK = 64  # the kernel's n-axis chunk (IC in csrc/megakernel.cu)
+_PI = 3.141592653589793
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+@dataclasses.dataclass(frozen=True)
+class MegaSpec:
+    """Static layout/config of one kernel specialization."""
+
+    n_pad: int
+    rp: int                 # padded rank (multiple of 8)
+    k: int                  # ring length (>= 1; use_hist gates its use)
+    use_hist: bool          # False when numlbfgsvecs == 0
+    gscale: float           # grad-norm divisor (normC if relative)
+    lr_sizes: Tuple[int, ...]       # s of each low-rank term
+    lr_is_obj: Tuple[bool, ...]     # True: the term belongs to the objective
+    lr_gids: Tuple[int, ...] = ()   # global constraint ids (wrapper only)
+    alpha_max: float = 1.0
+
+    @property
+    def n_lr(self):
+        return len(self.lr_sizes)
+
+    @property
+    def lr_cons(self):
+        return tuple(t for t in range(self.n_lr) if not self.lr_is_obj[t])
+
+    @property
+    def n_scal_out(self):
+        return 7 + self.k + max(len(self.lr_cons), 1)
+
+
+# --------------------------------------------------------------------------
+# eligibility and data preparation
+# --------------------------------------------------------------------------
+
+def _layout_ok(dp: DeviceProblem, r: int, k: int) -> bool:
+    """This layout's limits (see the module docstring)."""
+    return (
+        dp.n_pad <= MAX_N_PAD and dp.n_pad % N_CHUNK == 0
+        and _round_up(max(r, 1), 8) <= MAX_RP
+        and max(k, 1) <= MAX_K
+        and sum(int(t.B.shape[1]) for t in dp.lowrank) <= MAX_LR_COLS
+    )
+
+
+def megakernel_eligible(dp: DeviceProblem, r: int, k: int, use_armijo: bool,
+                        dtype) -> bool:
+    """True when K1 can run this problem: dense C, equality constraints
+    only, a row↔constraint bijection on the diagonal, at most
+    MAX_LR_TERMS low-rank equality terms, within the layout's limits.
+    Inequality / multi-channel / wide-constraint families belong to the
+    Armijo kernel K2, which is a later slice of the port."""
+    if dtype not in (torch.float32, torch.float64):
+        return False
+    if len(dp.lowrank) > MAX_LR_TERMS:
+        return False
+    lam_ub = dp.lam_ub.detach().cpu().numpy()
+    if any(t.gid < dp.m and np.isfinite(lam_ub[t.gid]) for t in dp.lowrank):
+        return False
+    if not _layout_ok(dp, r, k):
+        return False
+    if use_armijo or dp.has_inequalities or dp.wide_gids:
+        return False
+    if dp.C_dense is None or dp.diag_width != 1:
+        return False
+    # row<->constraint bijection: every non-lowrank constraint id appears
+    # exactly once on the diagonal
+    cid = dp.diag_cid[:, 0].detach().cpu().numpy()
+    lr_gids = {t.gid for t in dp.lowrank}
+    counts = np.bincount(cid[cid < dp.m], minlength=max(dp.m, 1))
+    return all(counts[g] == (0 if g in lr_gids else 1) for g in range(dp.m))
+
+
+@dataclasses.dataclass(frozen=True)
+class MegaData:
+    """Problem tensors the kernel needs, on the solve's device."""
+
+    C: torch.Tensor          # (n_pad, n_pad) dense cost
+    cid_dev: torch.Tensor    # (n_pad,) row -> constraint id (m = none)
+    w_row: torch.Tensor      # (1, n_pad) diagonal weights
+    b_row: torch.Tensor      # (1, n_pad) row-ordered rhs
+    b_lr: torch.Tensor       # (n_lr_cons,) rhs of low-rank constraints
+    lam_ub: torch.Tensor     # (m,)
+    vio_lb: torch.Tensor     # (m,)
+    lr_B: torch.Tensor       # (n_pad, Σs) the terms' B side by side
+    lr_Bdt: torch.Tensor     # (Σs, n_pad) d-scaled Bᵀ
+    lr_d: torch.Tensor       # (Σs,)
+
+
+def prepare_mega_data(dp: DeviceProblem, *, k: int, gtol_relative: bool,
+                      ptol_relative: bool):
+    """Host-side index prep. Returns (meta, MegaData); meta carries the
+    spec ingredients."""
+    if dp.has_inequalities or dp.wide_gids or dp.diag_width != 1 \
+            or dp.C_dense is None:
+        raise NotImplementedError(
+            "the Armijo megakernel K2 (inequality, multi-channel and wide "
+            "diagonal families) is ROADMAP slice C")
+    dtype, dev = dp.dtype, dp.device
+    m, n_pad = dp.m, dp.n_pad
+    cid = dp.diag_cid[:, 0].detach().cpu().numpy().astype(np.int64)
+    w_np = dp.diag_w[:, 0].detach().cpu().numpy()
+    valid = cid < m
+    b_np = dp.b.detach().cpu().numpy().astype(np.float64)
+    b_row_np = (np.where(valid, b_np[np.minimum(cid, max(m - 1, 0))], 0.0)
+                if m else np.zeros(n_pad))
+    lr_terms = list(dp.lowrank)
+    lr_cons_gids = [t.gid for t in lr_terms if t.gid != m]
+    t_ = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+    if lr_terms:
+        lr_B = torch.cat([t.B for t in lr_terms], dim=1)
+        lr_Bdt = torch.cat([t.d[:, None] * t.B.T for t in lr_terms], dim=0)
+        lr_d = torch.cat([t.d for t in lr_terms])
+    else:
+        lr_B, lr_Bdt, lr_d = t_(np.zeros((n_pad, 0))), \
+            t_(np.zeros((0, n_pad))), t_(np.zeros(0))
+    meta = dict(
+        n_pad=n_pad, m=m, kk=max(k, 1), use_hist=k > 0,
+        gscale=float(dp.normC if gtol_relative else 1.0),
+        pscale=float(dp.normb if ptol_relative else 1.0),
+        lr_sizes=tuple(int(t.B.shape[1]) for t in lr_terms),
+        lr_is_obj=tuple(t.gid == m for t in lr_terms),
+        lr_gids=tuple(t.gid for t in lr_terms),
+    )
+    data = MegaData(
+        C=dp.C_dense.contiguous(),
+        cid_dev=torch.as_tensor(np.where(valid, cid, m), device=dev),
+        w_row=t_(w_np).reshape(1, n_pad),
+        b_row=t_(b_row_np).reshape(1, n_pad),
+        b_lr=t_([b_np[g] for g in lr_cons_gids]),
+        lam_ub=dp.lam_ub, vio_lb=dp.vio_lb,
+        lr_B=lr_B.contiguous(), lr_Bdt=lr_Bdt.contiguous(),
+        lr_d=lr_d.contiguous(),
+    )
+    return meta, data
+
+
+def mega_spec_for(meta: dict, r: int) -> MegaSpec:
+    return MegaSpec(
+        n_pad=meta["n_pad"], rp=_round_up(max(r, 1), 8), k=meta["kk"],
+        use_hist=meta["use_hist"], gscale=meta["gscale"],
+        lr_sizes=meta["lr_sizes"], lr_is_obj=meta["lr_is_obj"],
+        lr_gids=meta["lr_gids"],
+    )
+
+
+# --------------------------------------------------------------------------
+# the plain version: the kernel's loop step by step in torch
+# --------------------------------------------------------------------------
+
+def _cubic_roots(a, b, c, d, eps):
+    """Real roots of a x³ + b x² + c x + d as (roots[3], valid[3]) — the
+    NaN-free form of the kernel (ops/cubic.py's algebra). 0-dim tensors."""
+    one = torch.ones_like(a)
+    scale = torch.maximum(torch.maximum(a.abs(), b.abs()),
+                          torch.maximum(c.abs(), d.abs())) + eps
+    is_cubic = a.abs() > eps * scale
+    is_quad = b.abs() > eps * scale
+    lin_root = -d / torch.where(c.abs() > 0, c, one)
+    b_safe = torch.where(is_quad, b, one)
+    disc_q = c * c - 4.0 * b_safe * d
+    sq = torch.sqrt(torch.clamp(disc_q, min=0.0))
+    quad1 = (-c + sq) / (2.0 * b_safe)
+    quad2 = (-c - sq) / (2.0 * b_safe)
+    qvalid = disc_q >= 0.0
+    a_safe = torch.where(is_cubic, a, one)
+    bb, cc, dd = b / a_safe, c / a_safe, d / a_safe
+    p = cc - bb * bb / 3.0
+    q = 2.0 * bb * bb * bb / 27.0 - bb * cc / 3.0 + dd
+    shift = -bb / 3.0
+    q2, p3 = q / 2.0, p / 3.0
+    disc = q2 * q2 + p3 * p3 * p3
+    sdisc = torch.sqrt(torch.clamp(disc, min=0.0))
+    single = _cbrt(-q / 2.0 + sdisc) + _cbrt(-q / 2.0 - sdisc) + shift
+    pm = torch.clamp(p, max=-eps)
+    rr = torch.sqrt(-pm / 3.0)
+    cos_arg = torch.clamp(3.0 * q / (2.0 * pm * rr), -1.0, 1.0)
+    phi = torch.arccos(cos_arg)
+    t0 = 2.0 * rr * torch.cos(phi / 3.0) + shift
+    t1 = 2.0 * rr * torch.cos((phi - 2.0 * _PI) / 3.0) + shift
+    t2 = 2.0 * rr * torch.cos((phi - 4.0 * _PI) / 3.0) + shift
+    one_real = disc > 0.0
+    c0 = torch.where(one_real, single, t0)
+    c1 = torch.where(one_real, single, t1)
+    c2 = torch.where(one_real, single, t2)
+    r0 = torch.where(is_cubic, c0, torch.where(is_quad, quad1, lin_root))
+    r1 = torch.where(is_cubic, c1, quad2)
+    v0 = is_cubic | ~is_quad
+    v1 = torch.where(is_cubic, ~one_real, is_quad & qvalid)
+    v2 = is_cubic & ~one_real
+    return (r0, r1, c2), (v0, v1, v2)
+
+
+def _cbrt(x):
+    return torch.sign(x) * x.abs() ** (1.0 / 3.0)
+
+
+def minimize_quartic_kernel(e, d1, c1, b1, a1, alpha_max, eps):
+    """argmin over [0, alpha_max] of e + d1 a + c1 a² + b1 a³ + a1 a⁴ as
+    the kernel computes it: closed-form roots of the derivative cubic, one
+    Newton polish each, clipped, compared with both endpoints (the first
+    strictly smaller value wins). Matches ops/cubic.py minimize_quartic."""
+    zero = torch.zeros_like(e)
+    amax = torch.full_like(e, alpha_max)
+    (r0, r1, r2), (v0, v1, v2) = _cubic_roots(4.0 * a1, 3.0 * b1, 2.0 * c1,
+                                              d1, eps)
+
+    def fval(x):
+        return e + x * (d1 + x * (c1 + x * (b1 + x * a1)))
+
+    def polish(x):
+        fp = d1 + x * (2.0 * c1 + x * (3.0 * b1 + x * 4.0 * a1))
+        fpp = 2.0 * c1 + x * (6.0 * b1 + x * 12.0 * a1)
+        ok = fpp.abs() > eps
+        return torch.where(ok, x - fp / torch.where(ok, fpp, torch.ones_like(fpp)), x)
+
+    cands = [torch.minimum(torch.clamp(torch.where(v, polish(r), zero),
+                                       min=0.0), amax)
+             for r, v in ((r0, v0), (r1, v1), (r2, v2))] + [amax, zero]
+    best_a, best_f = cands[0], fval(cands[0])
+    for cand in cands[1:]:
+        f = fval(cand)
+        take = f < best_f
+        best_a = torch.where(take, cand, best_a)
+        best_f = torch.where(take, f, best_f)
+    return best_a, best_f
+
+
+def _lr_slices(spec: MegaSpec):
+    off = np.concatenate([[0], np.cumsum(spec.lr_sizes)]).astype(int)
+    return [slice(off[t], off[t + 1]) for t in range(spec.n_lr)]
+
+
+def mega_chunk_plain(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
+                     s_ring, y_ring, lr_B, lr_Bdt, lr_d):
+    """The kernel's loop, step by step in torch, on the kernel's layout:
+    the same inputs as the CUDA launch, and the same outputs
+    (Rt, G, vio (1, n_pad), oscal). Like the kernel it updates the rings
+    ``s_ring``/``y_ring`` (k·rp, n_pad) in place. The scalar line search
+    runs on the host in the working dtype; everything of size n runs on
+    the tensors' device."""
+    rp, k = spec.rp, spec.k
+    dtype, dev = Rt_in.dtype, Rt_in.device
+    eps = torch.finfo(dtype).eps
+    host = lambda x: x.detach().to("cpu")
+    scal_h = host(scal)
+    sigma = scal[0]
+    cur_gtol = float(scal_h[1])
+    stag_tol = scal_h[2]
+    max_steps = int(scal_h[3])
+    head = int(scal_h[4])
+    rho = scal[5:5 + k].clone()
+    n_lc = len(spec.lr_cons)
+    lam_lc = scal[5 + k:5 + k + n_lc]
+    b_lc = scal[5 + k + n_lc:5 + k + 2 * n_lc]
+    lam, w, b = lam_row, w_row, b_row
+    sl = _lr_slices(spec)
+    cons_idx = {t: i for i, t in enumerate(spec.lr_cons)}
+
+    def lr_tr(Qa, Qb, t):
+        return torch.sum(Qa[:, sl[t]] * Qb[:, sl[t]] * lr_d[sl[t]])
+
+    def state_of(Rt, CRt, Q):
+        obj = torch.sum(Rt * CRt)
+        for t in range(spec.n_lr):
+            if spec.lr_is_obj[t]:
+                obj = obj + lr_tr(Q, Q, t)
+        vio = w * torch.sum(Rt * Rt, dim=0, keepdim=True) - b
+        vio_lr = [lr_tr(Q, Q, t) - b_lc[i] for t, i in cons_idx.items()]
+        return obj, vio, vio_lr
+
+    def al_of(obj, vio, vio_lr):
+        L = obj - torch.sum(lam * vio) + 0.5 * sigma * torch.sum(vio * vio)
+        for i in range(n_lc):
+            L = L - lam_lc[i] * vio_lr[i] + 0.5 * sigma * vio_lr[i] * vio_lr[i]
+        return L
+
+    def grad_of(Rt, CRt, Q, vio, vio_lr):
+        y_row = -(lam - sigma * vio)
+        G = 2.0 * (CRt + (w * y_row) * Rt)
+        for t in range(spec.n_lr):
+            if spec.lr_is_obj[t]:
+                y_t = 1.0
+            else:
+                i = cons_idx[t]
+                y_t = -(lam_lc[i] - sigma * vio_lr[i])
+            G = G + 2.0 * y_t * (Q[:, sl[t]] @ lr_Bdt[sl[t]])
+        return G
+
+    Rt = Rt_in.clone()
+    CRt = Rt @ C
+    Q = Rt @ lr_B
+    obj, vio, vio_lr = state_of(Rt, CRt, Q)
+    L_val = al_of(obj, vio, vio_lr)
+    G = grad_of(Rt, CRt, Q, vio, vio_lr)
+    gnorm = torch.sqrt(torch.sum(G * G)) / spec.gscale
+    steps, stag = 0, False
+    alpha = torch.zeros((), dtype=dtype, device=dev)
+
+    while float(gnorm) > cur_gtol and steps < max_steps and not stag:
+        # direction: two-loop recursion over the ring
+        if spec.use_hist:
+            q = G
+            a_vals = []
+            for i in range(k):
+                jj = (head - i) % k
+                s_j = s_ring[jj * rp:(jj + 1) * rp]
+                y_j = y_ring[jj * rp:(jj + 1) * rp]
+                a = rho[jj] * torch.sum(s_j * q)
+                q = q - a * y_j
+                a_vals.append((jj, a))
+            for i in range(k - 1, -1, -1):
+                jj, a = a_vals[i]
+                s_j = s_ring[jj * rp:(jj + 1) * rp]
+                y_j = y_ring[jj * rp:(jj + 1) * rp]
+                bq = rho[jj] * torch.sum(y_j * q)
+                q = q + (a - bq) * s_j
+            direction = -q
+            descent = float(torch.sum(direction * G))
+            if math.isnan(descent) or descent >= 0.0:
+                direction = -G
+        else:
+            direction = -G
+
+        # line-search products
+        CDt = direction @ C
+        p1 = 2.0 * torch.sum(Rt * CDt)
+        p2 = torch.sum(direction * CDt)
+        q1 = 2.0 * w * torch.sum(Rt * direction, dim=0, keepdim=True)
+        q2 = w * torch.sum(direction * direction, dim=0, keepdim=True)
+        M4 = torch.cat([lam, vio, q1, q2], dim=0)
+        Gm = M4 @ M4.T
+        Qd = direction @ lr_B
+        p1_lr = [2.0 * lr_tr(Q, Qd, t) for t in range(spec.n_lr)]
+        p2_lr = [lr_tr(Qd, Qd, t) for t in range(spec.n_lr)]
+        for t in range(spec.n_lr):
+            if spec.lr_is_obj[t]:
+                p1 = p1 + p1_lr[t]
+                p2 = p2 + p2_lr[t]
+        e = obj - Gm[0, 1] + 0.5 * sigma * Gm[1, 1]
+        d1 = p1 - Gm[0, 2] + sigma * Gm[1, 2]
+        c1 = p2 - Gm[0, 3] + sigma * Gm[1, 3] + 0.5 * sigma * Gm[2, 2]
+        b1 = sigma * Gm[2, 3]
+        a1 = 0.5 * sigma * Gm[3, 3]
+        for t, i in cons_idx.items():
+            lq1, lq2, lv = p1_lr[t], p2_lr[t], vio_lr[i]
+            e = e - lam_lc[i] * lv + 0.5 * sigma * lv * lv
+            d1 = d1 - lam_lc[i] * lq1 + sigma * lv * lq1
+            c1 = c1 - lam_lc[i] * lq2 + sigma * lv * lq2 \
+                + 0.5 * sigma * lq1 * lq1
+            b1 = b1 + sigma * lq1 * lq2
+            a1 = a1 + 0.5 * sigma * lq2 * lq2
+        alpha_h, L_new_h = minimize_quartic_kernel(
+            host(e), host(d1), host(c1), host(b1), host(a1),
+            spec.alpha_max, eps)
+        alpha = alpha_h.to(dev)
+        L_new = L_new_h.to(dev)
+
+        # algebraic commit + incremental products
+        vio = vio + alpha * (alpha * q2 + q1)
+        vio_lr = [vio_lr[i] + alpha * (alpha * p2_lr[t] + p1_lr[t])
+                  for t, i in cons_idx.items()]
+        obj = obj + alpha * (alpha * p2 + p1)
+        Rt = Rt + alpha * direction
+        CRt = CRt + alpha * CDt
+        Q = Q + alpha * Qd
+
+        # gradient + norms
+        G_new = grad_of(Rt, CRt, Q, vio, vio_lr)
+        gnorm = torch.sqrt(torch.sum(G_new * G_new)) / spec.gscale
+        L_old_h = host(L_val)
+        rel_delta = (L_old_h - L_new_h) / torch.maximum(
+            torch.ones_like(L_new_h),
+            torch.maximum(L_new_h.abs(), L_old_h.abs()))
+        stag = bool(rel_delta < stag_tol)
+
+        # ring push, skipped when stagnating
+        if spec.use_hist and not stag:
+            head_new = (head + 1) % k
+            s_new = alpha * direction
+            y_new = G_new - G
+            ys = torch.sum(y_new * s_new)
+            s_ring[head_new * rp:(head_new + 1) * rp] = s_new
+            y_ring[head_new * rp:(head_new + 1) * rp] = y_new
+            rho[head_new] = 1.0 / ys
+            head = head_new
+        G = G_new
+        L_val = L_new
+        steps += 1
+
+    oscal = torch.zeros(spec.n_scal_out, dtype=dtype, device=dev)
+    oscal[0] = L_val
+    oscal[1] = obj
+    oscal[2] = gnorm
+    oscal[3] = steps
+    oscal[4] = float(stag)
+    oscal[5] = alpha
+    oscal[6] = head
+    oscal[7:7 + k] = rho
+    for i in range(n_lc):
+        oscal[7 + k + i] = vio_lr[i]
+    return Rt, G, vio, oscal
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernel: build, plan, launch
+# --------------------------------------------------------------------------
+
+class _K1Args(ctypes.Structure):
+    """Mirror of ``struct K1Args`` in csrc/megakernel.cu (field order)."""
+
+    _fields_ = (
+        [(f, ctypes.c_int) for f in (
+            "n_pad", "rp", "k", "use_hist", "n_lr", "n_lc", "lrc",
+            "is_double")]
+        + [("lr_off", ctypes.c_int * (MAX_LR_TERMS + 1)),
+           ("lr_cons", ctypes.c_int * MAX_LR_TERMS),
+           ("device", ctypes.c_int),
+           ("gscale", ctypes.c_double), ("alpha_max", ctypes.c_double)]
+        + [(f, ctypes.c_void_p) for f in (
+            "scal", "C", "Rt_in", "lam", "w", "b", "s_ring", "y_ring",
+            "lrB", "lrBdt", "lrd", "Rt_out", "G_out", "vio_out", "oscal",
+            "work", "stream")]
+        + [(f, ctypes.c_int) for f in (
+            "S", "nblk", "smem_bytes", "sms", "blocks_per_sm")]
+        + [("work_elems", ctypes.c_longlong)]
+    )
+
+
+class CudaKernel:
+    """K1's shared library, built from ``csrc/megakernel.cu`` at first use,
+    and its launch count (``launches``: one per kernel launch on the main
+    path; nothing else adds to it)."""
+
+    source = "megakernel.cu"
+
+    def __init__(self):
+        self.launches = 0
+        self._built = None
+
+    @property
+    def built(self):
+        if self._built is None:
+            from ..utils.build import build_cuda
+
+            built = build_cuda(self.source)
+            lib = built.lib
+            lib.k1_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            lib.k1_limits.restype = ctypes.c_int
+            for fn in (lib.k1_plan, lib.k1_launch):
+                fn.argtypes = [ctypes.POINTER(_K1Args)]
+                fn.restype = ctypes.c_int
+            lib.k1_error_string.argtypes = [ctypes.c_int]
+            lib.k1_error_string.restype = ctypes.c_char_p
+            lim = (ctypes.c_int * 7)()
+            lib.k1_limits(lim)
+            want = (MAX_RP, 16, MAX_K, MAX_LR_TERMS, MAX_LR_COLS, N_CHUNK,
+                    ctypes.sizeof(_K1Args))
+            if tuple(lim) != want:
+                raise RuntimeError(
+                    f"megakernel.cu limits {tuple(lim)} disagree with the "
+                    f"wrapper's {want}")
+            self._built = built
+        return self._built
+
+    def _check(self, rc: int, what: str):
+        if rc != 0:
+            msg = self.built.lib.k1_error_string(rc).decode()
+            raise RuntimeError(f"K1 {what} failed: CUDA error {rc} ({msg})")
+
+    def plan(self, args: _K1Args) -> _K1Args:
+        self._check(self.built.lib.k1_plan(ctypes.byref(args)), "plan")
+        if args.blocks_per_sm * args.sms < args.nblk or args.S > 16:
+            raise RuntimeError(
+                f"K1 grid of {args.nblk} blocks ({args.S} columns each) is "
+                f"not co-resident on {args.sms} SMs at {args.blocks_per_sm} "
+                f"block(s) per SM")
+        return args
+
+    def launch(self, args: _K1Args):
+        self.plan(args)
+        self._check(self.built.lib.k1_launch(ctypes.byref(args)), "launch")
+        self.launches += 1
+
+
+K1 = CudaKernel()
+
+
+def _args_for(spec: MegaSpec, dtype, device) -> _K1Args:
+    a = _K1Args()
+    a.n_pad, a.rp, a.k = spec.n_pad, spec.rp, spec.k
+    a.use_hist = int(spec.use_hist)
+    a.n_lr, a.n_lc = spec.n_lr, len(spec.lr_cons)
+    a.lrc = int(sum(spec.lr_sizes))
+    a.is_double = int(dtype == torch.float64)
+    off = np.concatenate([[0], np.cumsum(spec.lr_sizes)]).astype(int)
+    for t in range(MAX_LR_TERMS + 1):
+        a.lr_off[t] = int(off[min(t, spec.n_lr)])
+    cons = {t: i for i, t in enumerate(spec.lr_cons)}
+    for t in range(MAX_LR_TERMS):
+        a.lr_cons[t] = cons.get(t, -1)
+    a.device = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    a.gscale, a.alpha_max = float(spec.gscale), float(spec.alpha_max)
+    return a
+
+
+def mega_kernel(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
+                s_ring, y_ring, lr_B, lr_Bdt, lr_d):
+    """Launch K1 on CUDA tensors: the same arguments and results as
+    ``mega_chunk_plain``; ``s_ring``/``y_ring`` are updated in place. The
+    launch goes on the current stream and does not synchronise."""
+    dtype, dev = Rt_in.dtype, Rt_in.device
+    n, rp, k = spec.n_pad, spec.rp, spec.k
+    lrc = int(sum(spec.lr_sizes))
+    if dev.type != "cuda":
+        raise ValueError("mega_kernel takes CUDA tensors")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"K1 runs in float32 or float64, got {dtype}")
+    if n > MAX_N_PAD or n % N_CHUNK or rp > MAX_RP or rp % 8 or k > MAX_K \
+            or lrc > MAX_LR_COLS or spec.n_lr > MAX_LR_TERMS:
+        raise ValueError(f"K1 layout limits exceeded by {spec}")
+    want = {
+        "scal": (5 + k + 2 * len(spec.lr_cons),), "C": (n, n),
+        "Rt_in": (rp, n), "lam_row": (1, n), "w_row": (1, n),
+        "b_row": (1, n), "s_ring": (k * rp, n), "y_ring": (k * rp, n),
+        "lr_B": (n, lrc), "lr_Bdt": (lrc, n), "lr_d": (lrc,),
+    }
+    got = dict(scal=scal, C=C, Rt_in=Rt_in, lam_row=lam_row, w_row=w_row,
+               b_row=b_row, s_ring=s_ring, y_ring=y_ring, lr_B=lr_B,
+               lr_Bdt=lr_Bdt, lr_d=lr_d)
+    for name, x in got.items():
+        if tuple(x.shape) != want[name] or x.dtype != dtype \
+                or x.device != dev or not x.is_contiguous():
+            raise ValueError(
+                f"K1 argument {name}: want contiguous {want[name]} {dtype} "
+                f"on {dev}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    a = K1.plan(_args_for(spec, dtype, dev))
+    Rt_out = torch.empty((rp, n), dtype=dtype, device=dev)
+    G_out = torch.empty((rp, n), dtype=dtype, device=dev)
+    vio_out = torch.empty((1, n), dtype=dtype, device=dev)
+    oscal = torch.zeros(spec.n_scal_out, dtype=dtype, device=dev)
+    work = torch.empty(int(a.work_elems), dtype=dtype, device=dev)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr() if x.numel() else 0)
+    a.scal, a.C, a.Rt_in = ptr(scal), ptr(C), ptr(Rt_in)
+    a.lam, a.w, a.b = ptr(lam_row), ptr(w_row), ptr(b_row)
+    a.s_ring, a.y_ring = ptr(s_ring), ptr(y_ring)
+    a.lrB, a.lrBdt, a.lrd = ptr(lr_B), ptr(lr_Bdt), ptr(lr_d)
+    a.Rt_out, a.G_out, a.vio_out = ptr(Rt_out), ptr(G_out), ptr(vio_out)
+    a.oscal, a.work = ptr(oscal), ptr(work)
+    a.stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    K1.launch(a)
+    return Rt_out, G_out, vio_out, oscal
+
+
+def _lr_cons_gids(spec: MegaSpec):
+    return [g for t, g in enumerate(spec.lr_gids) if not spec.lr_is_obj[t]]
+
+
+def mega_inputs(spec: MegaSpec, r: int, data: MegaData, R, lbfgs, lam,
+                sigma, cur_gtol, stag_tol, max_steps) -> tuple:
+    """The kernel's arguments from the inner-loop state (the transposes
+    and rank padding of megakernel.py:1204-1216): (scal, C, Rt, lam_row,
+    w_row, b_row, s_ring, y_ring, lr_B, lr_Bdt, lr_d). ``scal`` is built
+    on the device, so a launch needs no host sync."""
+    dtype, dev = R.dtype, R.device
+    n_pad, rp, kk = spec.n_pad, spec.rp, spec.k
+    f = lambda x: torch.as_tensor(x, dtype=dtype).to(dev).reshape(1)
+
+    Rt = torch.zeros((rp, n_pad), dtype=dtype, device=dev)
+    Rt[:r] = R.T
+    lam_ext = torch.cat([lam, torch.zeros(1, dtype=dtype, device=dev)])
+    lam_row = lam_ext[data.cid_dev].reshape(1, n_pad)
+
+    # (k, n_pad, r) -> (k*rp, n_pad): transposed + rank-padded
+    def to_kern(h):
+        ht = torch.zeros((kk, rp, n_pad), dtype=dtype, device=dev)
+        ht[:, :r] = h.transpose(1, 2)
+        return ht.reshape(kk * rp, n_pad)
+
+    gids = _lr_cons_gids(spec)
+    scal = torch.cat([
+        f(sigma), f(cur_gtol), f(stag_tol), f(float(max_steps)),
+        f(float(lbfgs.head)), lbfgs.rho.to(dtype),
+        lam[gids] if gids else torch.zeros(0, dtype=dtype, device=dev),
+        data.b_lr,
+    ])
+    return (scal, data.C, Rt, lam_row, data.w_row, data.b_row,
+            to_kern(lbfgs.s_hist), to_kern(lbfgs.y_hist), data.lr_B,
+            data.lr_Bdt, data.lr_d)
+
+
+def mega_carry(spec: MegaSpec, r: int, m: int, pscale: float,
+               data: MegaData, lam, sigma, s_ring, y_ring, outputs):
+    """(InnerCarry, vio_norm) from the kernel's outputs (Rt, G, vio,
+    oscal) and its rings — the unpacking of megakernel.py:1240-1269."""
+    from ..solver.inner import InnerCarry
+    from ..solver.lbfgs import LBFGSState
+
+    Rt_o, G_o, vio_o, osc = outputs
+    dtype, dev = Rt_o.dtype, Rt_o.device
+    n_pad, rp, kk = spec.n_pad, spec.rp, spec.k
+
+    def from_kern(h2):
+        return h2.reshape(kk, rp, n_pad)[:, :r].transpose(1, 2).contiguous()
+
+    osc_h = osc.detach().to("cpu")
+    vio_raw = torch.zeros(m + 1, dtype=dtype, device=dev)
+    vio_raw[data.cid_dev] = vio_o[0]
+    for i, g in enumerate(_lr_cons_gids(spec)):
+        vio_raw[g] = osc[7 + kk + i]
+    vio_raw[m] = osc[1]
+    lam_t = torch.minimum(data.lam_ub, lam - sigma * vio_raw[:m])
+    y_full = torch.cat([-lam_t, torch.ones(1, dtype=dtype, device=dev)])
+    new_lbfgs = LBFGSState(
+        s_hist=from_kern(s_ring), y_hist=from_kern(y_ring),
+        rho=osc[7:7 + kk].clone(), head=int(osc_h[6]),
+        sty=torch.zeros((kk, kk), dtype=dtype, device=dev),
+        yty=torch.zeros((kk, kk), dtype=dtype, device=dev),
+    )
+    carry = InnerCarry(
+        R=Rt_o[:r].T.contiguous(), G=G_o[:r].T.contiguous(), y_full=y_full,
+        vio_raw=vio_raw, L_val=osc[0], grad_norm=osc[2], lbfgs=new_lbfgs,
+        steps=int(osc_h[3]), stagnated=bool(osc_h[4] > 0),
+    )
+    vio = torch.maximum(vio_raw[:m], data.vio_lb)
+    return carry, torch.linalg.norm(vio) / pscale
+
+
+def mega_chunk(spec: MegaSpec, r: int, m: int, pscale: float, data: MegaData,
+               R, lbfgs, lam, sigma, cur_gtol, stag_tol, max_steps):
+    """One inner activation through K1 — the ``mega_chunk_traced``
+    contract (megakernel.py:1184-1269): returns (InnerCarry, vio_norm).
+    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    args = mega_inputs(spec, r, data, R, lbfgs, lam, sigma, cur_gtol,
+                       stag_tol, max_steps)
+    run = mega_kernel if R.device.type == "cuda" else mega_chunk_plain
+    outputs = run(spec, *args)
+    return mega_carry(spec, r, m, pscale, data, lam, sigma, args[6],
+                      args[7], outputs)
+

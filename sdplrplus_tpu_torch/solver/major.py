@@ -1,0 +1,315 @@
+"""The outer driver's state machine: many major AL iterations per call.
+
+Counterpart of the JAX package's ``solver/major.py`` (reference:
+src/sdplr.jl:185-393). The JAX package fuses the whole major-iteration
+state machine into one ``lax.while_loop``; here it is a Python loop with
+the same exits and the same two-way body, since PyTorch runs eagerly:
+
+  * inner L-BFGS steps: one ``inner_step`` of the torch loop per body
+    iteration, or one launch of the CUDA megakernel
+    (ops/megakernel.mega_chunk) that runs a whole inner activation;
+  * the feasibility branch: vio ≤ cur_ptol → at strict boundaries the
+    Lanczos dual bound (least-squares and AL multipliers alternating),
+    best-λ/gap tracking, dual ascent and tolerance tightening
+    (reference: src/sdplr.jl:310-364);
+  * the infeasible branch: σ·=σfac, tolerance reset (src/sdplr.jl:365-370);
+  * the rank-doubling counter, which exits to the caller;
+  * L-BFGS clear + fg! re-sync at the boundary (src/sdplr.jl:389).
+
+Scalars that the JAX carry holds as device values of the solve's dtype
+(σ, tolerances, dual values) stay 0-dim tensors here, so float32 solves
+round where the JAX package rounds; counters and flags are Python values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..ops.device import DeviceProblem
+from ..ops.lanczos import (
+    lanczos_alpha_beta_impl,
+    lanczos_alpha_beta_reorth_impl,
+    lanczos_v0 as draw_lanczos_v0,
+    tridiag_min_eig_device,
+    tridiag_min_eig_device_certified,
+)
+from .al import al_value_grad, capped_vio
+from .inner import InnerCarry, inner_step
+from .lbfgs import lbfgs_clear
+
+BIG = 1e20
+
+
+@dataclasses.dataclass
+class MajorCarry:
+    ic: InnerCarry            # R, G, y_full, vio_raw, L_val, grad_norm,
+    #                           lbfgs, steps (this call), stagnated
+    lam: torch.Tensor         # (m,)
+    sigma: torch.Tensor       # 0-dim
+    cur_ptol: torch.Tensor    # 0-dim
+    cur_gtol: torch.Tensor    # 0-dim
+    generator: torch.Generator  # Lanczos start vectors
+    best_lam: torch.Tensor    # (m,) λ at the best dual value
+    max_dual: torch.Tensor    # 0-dim
+    min_gap: torch.Tensor     # 0-dim
+    last_gap: torch.Tensor    # 0-dim: gap at the last feasible boundary
+    rankupd_cnt: int          # countdown to rank doubling
+    majoriters: int           # major boundaries crossed this call
+    converged: bool
+    rank_double: bool
+    feas_count: int           # strict boundaries (dual bounds computed)
+    dual_passes: int          # operator passes spent on dual bounds
+
+
+def _vio_norm(dp: DeviceProblem, vio_raw, pscale):
+    return torch.linalg.norm(capped_vio(dp, vio_raw)) / pscale
+
+
+def major_chunk(
+    dp: DeviceProblem,
+    carry: MajorCarry,
+    budget: int,          # inner-step budget of this call
+    major_budget: int,    # major boundaries this call may cross
+    base_iter: int,       # inner iterations before this call
+    stag_tol,
+    ptol_final,
+    gtol_final,
+    objtol,
+    sigmafac,
+    trace_bound,
+    rankupd_tol: int,
+    mega_data=None,       # ops/megakernel.MegaData when mega_spec is set
+    *,
+    k: int,
+    use_armijo: bool,
+    gtol_relative: bool,
+    ptol_relative: bool,
+    objtol_relative: bool,
+    q_max: int,
+    highprecision: bool,
+    dual_safeguard: bool = True,
+    lbfgs_compact: bool = True,
+    blk_b: int = 0,
+    mega_spec=None,       # ops/megakernel.MegaSpec: the inner loop runs
+    mega_r: int = 0,      # as one megakernel call per activation
+    lanczos_v0=None,      # (n_pad, 1) start vector for every bound of
+    #                       this call; None draws from carry.generator
+):
+    """Advance the solve by up to ``budget`` inner steps / ``major_budget``
+    major boundaries. Returns (MajorCarry, vio_norm)."""
+    if blk_b > 0:
+        raise NotImplementedError(
+            "the block-Lanczos dual bound is ROADMAP slice B")
+    if use_armijo and mega_spec is None:
+        raise NotImplementedError(
+            "the Armijo inner loop (inequality families) is ROADMAP slice C")
+    dtype, dev = carry.ic.R.dtype, carry.ic.R.device
+    m = dp.m
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+    stag_tol, ptol_final, gtol_final = f(stag_tol), f(ptol_final), f(gtol_final)
+    objtol, sigmafac, trace_bound = f(objtol), f(sigmafac), f(trace_bound)
+    pscale = dp.normb if ptol_relative else 1.0
+    logn = math.log(max(dp.n, 2))
+    sigma_cap = f(2.0) ** 100
+
+    def healthy(c: MajorCarry) -> bool:
+        # stop on a numerically failed state (NaN L or σ overflow) instead
+        # of spinning the infeasible branch to the major limit
+        return bool(torch.isfinite(c.ic.L_val) & torch.isfinite(c.sigma)
+                    & (c.sigma < sigma_cap))
+
+    def cond(c: MajorCarry) -> bool:
+        return (not c.converged and not c.rank_double
+                and c.ic.steps < budget and c.majoriters < major_budget
+                and healthy(c))
+
+    if mega_spec is not None:
+        from ..ops.megakernel import mega_chunk
+
+        def inner_branch(c: MajorCarry) -> MajorCarry:
+            ic2, _ = mega_chunk(
+                mega_spec, mega_r, m, pscale, mega_data, c.ic.R, c.ic.lbfgs,
+                c.lam, c.sigma, c.cur_gtol, stag_tol, max(budget - c.ic.steps, 0),
+            )
+            ic2.steps = c.ic.steps + ic2.steps
+            return dataclasses.replace(c, ic=ic2)
+    else:
+        def inner_branch(c: MajorCarry) -> MajorCarry:
+            ic2 = inner_step(dp, c.ic, c.lam, c.sigma, stag_tol, k=k,
+                             use_armijo=use_armijo,
+                             gtol_relative=gtol_relative,
+                             lbfgs_compact=lbfgs_compact)
+            return dataclasses.replace(c, ic=ic2)
+
+    def bound_for(c: MajorCarry, y_head):
+        """Safeguarded Lanczos dual value for one multiplier estimate
+        (reference: src/coreop.jl:376-415). Returns (dual, passes)."""
+        y_full = torch.cat([y_head, torch.ones(1, dtype=dtype, device=dev)])
+        v0 = lanczos_v0 if lanczos_v0 is not None else draw_lanczos_v0(
+            dp, c.generator, dtype)
+        if highprecision:
+            alpha, beta, k_eff = lanczos_alpha_beta_reorth_impl(
+                dp, y_full, v0, q_max=q_max)
+        else:
+            # q = 2⌈max(iter,100)^0.5·log n⌉ (reference: src/coreop.jl:402)
+            it = float(max(base_iter + c.ic.steps, 100))
+            q = int(min(max(2.0 * math.ceil(math.sqrt(it) * logn), 1),
+                        min(q_max, dp.n)))
+            alpha, beta, k_eff = lanczos_alpha_beta_impl(
+                dp, y_full, v0, q, q_max=q_max)
+        if dual_safeguard:
+            theta, margin = tridiag_min_eig_device_certified(
+                alpha, beta, k_eff)
+            min_eig = theta - margin
+        else:
+            min_eig = tridiag_min_eig_device(alpha, beta, k_eff)
+        yb = torch.dot(y_full[:m], dp.b)
+        return -yb + trace_bound * min(min_eig, 0.0), int(k_eff)
+
+    def dual_bound(c: MajorCarry):
+        """Dual value at the least-squares multiplier on LS-eligible
+        families, alternating with the AL ascent iterate across strict
+        boundaries (one Lanczos per boundary), or at the AL iterate."""
+        y_al = -torch.minimum(dp.lam_ub, c.lam - c.sigma * c.ic.vio_raw[:m])
+        if not dp.ls_eligible:
+            d_al, p_al = bound_for(c, y_al)
+            return d_al, p_al, y_al
+        from .dualbound import ls_dual_head
+
+        y = (ls_dual_head(dp, c.ic.R, None, y_fallback=y_al)
+             if c.feas_count % 2 == 0 else y_al)
+        d, p = bound_for(c, y)
+        return d, p, y
+
+    def certified_obj(c: MajorCarry):
+        """Objective of the termination gap: on identity-diagonal problems
+        ⟨C, X̂⟩ at the exactly feasible projection R̂ᵢ = Rᵢ·√bᵢ/‖Rᵢ‖, so
+        the gap the solver stops on is the certificate it reports."""
+        if not dp.diag_identity:
+            return c.ic.vio_raw[m]
+        from ..ops.spmm import spmm_C
+
+        R = c.ic.R
+        nrm2 = torch.sum(R * R, dim=1)
+        rows = torch.arange(R.shape[0], device=dev)
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        b_row = torch.where(rows < dp.n,
+                            dp.b[torch.clamp(rows, max=m - 1)], zero)
+        alive = nrm2 > 0
+        scale = torch.where(
+            alive, torch.sqrt(b_row / torch.clamp(nrm2, min=1e-30)), zero)
+        Rhat = R * scale[:, None]
+        CRh = spmm_C(dp, Rhat)
+        for t in dp.lowrank:  # diag_identity ⇒ every low-rank term is C's
+            CRh = CRh + t.B @ (t.d[:, None] * (t.B.T @ Rhat))
+        obj_cert = torch.sum(CRh * Rhat)
+        # dead rows make the projection infeasible — fall back to raw
+        bad = bool(torch.any((rows < dp.n) & ~alive))
+        return c.ic.vio_raw[m] if bad else obj_cert
+
+    def feasible_branch(c: MajorCarry, vio_norm) -> MajorCarry:
+        """reference: src/sdplr.jl:310-364; the dual bound runs only at
+        STRICT boundaries (vio ≤ final ptol)."""
+        strict = bool(vio_norm <= ptol_final)
+        best_lam, max_dual, feas_count = c.best_lam, c.max_dual, c.feas_count
+        dual_passes = c.dual_passes
+        if strict:
+            dual, passes, y_head = dual_bound(c)
+            # `dual > max_dual` so a NaN dual never poisons the running best
+            better = bool(dual > c.max_dual)
+            if better:
+                best_lam, max_dual = -y_head, dual
+            feas_count += 1
+            obj = certified_obj(c)
+            dual_passes += passes
+        else:
+            obj = c.ic.vio_raw[m]
+        if objtol_relative:
+            denom = torch.minimum(obj.abs(), max_dual.abs())
+            gap = (obj - max_dual) / denom if bool(denom > 0) \
+                else f(float("inf"))
+        else:
+            gap = obj - max_dual
+
+        conv = strict and bool(gap <= objtol)
+        # no-progress counter toward rank doubling (src/sdplr.jl:343-355)
+        cnt = c.rankupd_cnt
+        if strict and not conv:
+            cnt = cnt - 1 if bool((c.min_gap - gap) < objtol) else rankupd_tol
+        min_gap = gap if strict and bool(gap < c.min_gap) else c.min_gap
+        rank_double = cnt == 0 and not conv
+
+        # dual ascent + tighten (skipped on convergence / rank exit)
+        lam, cur_ptol, cur_gtol = c.lam, c.cur_ptol, c.cur_gtol
+        if not conv and not rank_double:
+            lam = torch.minimum(dp.lam_ub, c.lam - c.sigma * c.ic.vio_raw[:m])
+            cur_ptol = c.cur_ptol / c.sigma ** 0.9
+            cur_gtol = c.cur_gtol / c.sigma
+        return dataclasses.replace(
+            c, lam=lam, cur_ptol=cur_ptol, cur_gtol=cur_gtol,
+            best_lam=best_lam, max_dual=max_dual, min_gap=min_gap,
+            last_gap=gap, rankupd_cnt=cnt, converged=conv,
+            rank_double=rank_double, feas_count=feas_count,
+            dual_passes=dual_passes,
+        )
+
+    def infeasible_branch(c: MajorCarry) -> MajorCarry:
+        """reference: src/sdplr.jl:365-370."""
+        sigma2 = c.sigma * sigmafac
+        return dataclasses.replace(c, sigma=sigma2,
+                                   cur_ptol=1.0 / sigma2 ** f(0.1),
+                                   cur_gtol=1.0 / sigma2)
+
+    def major_branch(c: MajorCarry) -> MajorCarry:
+        vio_norm = _vio_norm(dp, c.ic.vio_raw, pscale)
+        if bool(vio_norm <= c.cur_ptol):
+            c = feasible_branch(c, vio_norm)
+        else:
+            c = infeasible_branch(c)
+        # tolerance floors
+        c = dataclasses.replace(
+            c, cur_ptol=torch.maximum(c.cur_ptol, ptol_final),
+            cur_gtol=torch.maximum(c.cur_gtol, gtol_final),
+            majoriters=c.majoriters + 1,
+        )
+        if c.converged or c.rank_double:
+            return c
+        # L-BFGS clear + fg! re-sync (src/sdplr.jl:383,389)
+        L, vio_raw, G, y_full, gnorm, _ = al_value_grad(
+            dp, c.ic.R, c.lam, c.sigma, gtol_relative=gtol_relative,
+            ptol_relative=ptol_relative)
+        ic2 = InnerCarry(R=c.ic.R, G=G, y_full=y_full, vio_raw=vio_raw,
+                         L_val=L, grad_norm=gnorm,
+                         lbfgs=lbfgs_clear(c.ic.lbfgs), steps=c.ic.steps,
+                         stagnated=False)
+        return dataclasses.replace(c, ic=ic2)
+
+    while cond(carry):
+        inner_active = (bool(carry.ic.grad_norm > carry.cur_gtol)
+                        and not carry.ic.stagnated)
+        carry = inner_branch(carry) if inner_active else major_branch(carry)
+    return carry, _vio_norm(dp, carry.ic.vio_raw, pscale)
+
+
+def init_major_carry(dp: DeviceProblem, R, lam, sigma, cur_ptol, cur_gtol,
+                     generator: torch.Generator, lbfgs, rankupd_tol: int, *,
+                     gtol_relative: bool, ptol_relative: bool) -> MajorCarry:
+    """Build the initial carry from host state (fresh or after rank
+    doubling). Runs one fg! to populate (L, vio, G)."""
+    dtype, dev = R.dtype, R.device
+    L, vio_raw, G, y_full, gnorm, _ = al_value_grad(
+        dp, R, lam, sigma, gtol_relative=gtol_relative,
+        ptol_relative=ptol_relative)
+    ic = InnerCarry(R=R, G=G, y_full=y_full, vio_raw=vio_raw, L_val=L,
+                    grad_norm=gnorm, lbfgs=lbfgs, steps=0, stagnated=False)
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+    return MajorCarry(
+        ic=ic, lam=lam, sigma=f(sigma), cur_ptol=f(cur_ptol),
+        cur_gtol=f(cur_gtol), generator=generator, best_lam=lam,
+        max_dual=f(-BIG), min_gap=f(BIG), last_gap=f(BIG),
+        rankupd_cnt=int(rankupd_tol), majoriters=0, converged=False,
+        rank_double=False, feas_count=0, dual_passes=0,
+    )
