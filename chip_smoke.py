@@ -4,13 +4,14 @@
     python3 chip_smoke.py
 
 From the root of a checkout, on a machine with one H100, the CUDA
-toolkit and PyTorch built for CUDA. It builds the port's CUDA kernel
+toolkit and PyTorch built for CUDA. It builds the port's CUDA kernels
 from the sources in the checkout and runs these phases, one line each:
 
   1. device   the card, its compute capability (must be 9.0), its name
               and power limit as nvidia-smi reports them, the TF32 flags;
-  2. build    nvcc of csrc/megakernel.cu, in seconds, and what ptxas
-              reports of its registers and spills;
+  2. build    nvcc of csrc/megakernel.cu (K1) and csrc/megakernel_armijo.cu
+              (K2), both started together, in seconds, and what ptxas
+              reports of their registers and spills;
   3. K1       the inner-loop megakernel against its plain PyTorch version
               on the same inputs on the card: float32 and float64, 1 and
               25 steps, the gtol exit and the ring round trip, on a
@@ -25,7 +26,25 @@ from the sources in the checkout and runs these phases, one line each:
               K1 per iteration (the slope between 100 and 2000 steps with
               gtol -1 and the stagnation test off), its plain version's
               and the torch inner loop's per iteration, the bound, and the
-              warm solve's seconds after one warm-up solve.
+              warm solve's seconds after one warm-up solve;
+  6. K2       the Armijo megakernel against its plain version at every
+              step count 0..25 (float64 to 1e-9; float32 to K1's
+              tolerances, on μ-conductance at steps 0 and 1 only, see the
+              note in the phase), the gtol exit and the ring round trip,
+              on μ-conductance on the G1-shaped graph (μ = 0.1, n_pad 896,
+              three channels per row, one wide and one low-rank
+              constraint), relaxed MaxCut with native inequalities on the
+              same graph (one channel, dense C) and μ-conductance on the
+              G22-shaped graph (n_pad 2048), all at rank 10;
+  7. mucond   the inequality path: sdplr(...) on μ-conductance on the
+              G1-shaped graph in float32 (trace bound n·ub, the reference's
+              experiment settings), with every launch count set to 0 just
+              before and read just after; it must run on K2 with no K1
+              launch, reach pinfeas and gap ≤ 1e-2, keep diag(X) inside its
+              box and ⟨D, X⟩ = 1 to ptol, and land within 1e-2 of the JAX
+              package's objective;
+  8. times2   as 5 for K2 on the μ-conductance G1 state, with the torch
+              Armijo inner loop (fast-diagonal engine) beside it.
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -39,6 +58,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # sdplrplus_tpu.sdplr (the JAX package) on the CPU, float32, on the same
 # instance and arguments as phase 4:
@@ -48,6 +68,17 @@ import time
 # -> obj -11819.0537109375, pinfeas 9.64e-3, gap 2.80e-3, 158 iterations,
 #    rank 10, engine dense-mxu.
 JAX_G1_OBJ = -11819.0537109375
+
+# sdplrplus_tpu.sdplr on the CPU, float32, on the instance of phase 7:
+#   A = make_random_graph(800, 0.83, seed=1)
+#   C, As, b, ct = mu_conductance_ineq(A, 0.1)
+#   sdplr(C, As, b, 10, constraint_types=ct, ptol=1e-2, objtol=1e-2,
+#         prior_trace_bound=800 * mu_conductance_ub(A.sum(), 0.1),
+#         dtype="float32", seed=0)
+# -> obj 0.7231850028038025, pinfeas 2.29e-4, gap 7.40e-3, 4272
+#    iterations, 36 major iterations, rank 20, engine fast-diag-spmm.
+JAX_MUCOND_G1_OBJ = 0.7231850028038025
+MU = 0.1
 
 PEAK_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,       # non-tensor FP32
@@ -80,7 +111,8 @@ def main():
     from sdplrplus_tpu_torch import sdplr
     from sdplrplus_tpu_torch.compile import compile_problem
     from sdplrplus_tpu_torch.models import (
-        make_random_graph, maxcut, minimum_bisection,
+        make_random_graph, maxcut, minimum_bisection, mu_conductance_ineq,
+        mu_conductance_lb, mu_conductance_ub, relaxed_maxcut_ineq,
     )
     from sdplrplus_tpu_torch.ops import megakernel as mk
     from sdplrplus_tpu_torch.ops.device import to_device
@@ -105,14 +137,20 @@ def main():
     assert cap == (9, 0), f"K1 is built for sm_90a, got capability {cap}"
     assert tf32_mm is False, "TF32 matmul must stay off"
 
-    # ---- 2. build --------------------------------------------------------
-    t0 = time.time()
-    built = mk.K1.built
-    build_s = time.time() - t0
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    say("build", f"{os.path.relpath(built.path)} in {build_s:.1f} s "
-        f"(cached={built.cached}); ptxas: {' / '.join(ptxas)}")
+    # ---- 2. build: one nvcc per source, started together -----------------
+    def build(kern):
+        t0 = time.time()
+        built = kern.built
+        return kern, built, time.time() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = list(pool.map(build, (mk.K1, mk.K2)))
+    for kern, built, build_s in builds:
+        ptxas = [ln.strip() for ln in built.log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        say("build", f"{kern.name}: {os.path.relpath(built.path)} in "
+            f"{build_s:.1f} s (cached={built.cached}); ptxas: "
+            f"{' / '.join(ptxas)}")
 
     # ---- problems --------------------------------------------------------
     g800 = make_random_graph(800, 0.83, seed=1)
@@ -240,12 +278,13 @@ def main():
     C, As, b = maxcut(A)
     kw = dict(ptol=1e-2, objtol=1e-2, prior_trace_bound=800.0,
               dtype="float32", seed=0, printlevel=0)
-    mk.K1.launches = 0
+    mk.K1.launches = mk.K2.launches = 0
     t0 = time.time()
     res = sdplr(C, As, b, RANK, **kw)
     torch.cuda.synchronize()
     cold_s = time.time() - t0
     launches = mk.K1.launches
+    assert mk.K2.launches == 0, mk.K2.launches
     obj, pinf, gap = res["obj"], res["primal_vio"], res["rel_duality_gap"]
     rel = abs(obj - JAX_G1_OBJ) / abs(JAX_G1_OBJ)
     say("slice", f"G1-shaped MaxCut n={A.shape[0]} edges={A.nnz // 2}: "
@@ -364,6 +403,302 @@ def main():
         f"({res2['iter']} iterations), first solve {cold_s:.3f} s; "
         f"nvidia-smi: {smi}")
 
+    # ---- 6. K2 against its plain version ----------------------------------
+    # μ-conductance keeps C sparse (its wide volume constraint), so its
+    # problem comes from compile_problem's own choice; relaxed MaxCut with
+    # native inequalities compiles to dense C.
+    def mucond(A):
+        C, As, b, ct = mu_conductance_ineq(A, MU)
+        return C, As, b, ct
+
+    cases2 = [("G1-shaped mu-conductance", mucond, g800),
+              ("relaxed MaxCut (inequalities), G1 graph",
+               relaxed_maxcut_ineq, g800),
+              ("G22-shaped mu-conductance", mucond, g2000)]
+    compiled2 = {}
+    for label, gen, A in cases2:
+        C, As, b, ct = gen(A)
+        compiled2[label] = (A, compile_problem(
+            SDPProblem(C, As, np.asarray(b, np.float64), ct)))
+
+    def kernel_state2(label, dtype, seed=0):
+        """A problem on the card and an inner-loop start state at the
+        inequality path's shapes, inside the feasible region's scale:
+        for μ-conductance R's columns are d-centred (the low-rank
+        constraint dᵀX d = 0 holds) and R is scaled so ⟨D, X⟩ = 1, which
+        puts diag(X) near 1/vol(G), inside the box [lb, ub]; for relaxed
+        MaxCut each row has norm 1/1.01. Multipliers are small and
+        within their upper bounds, σ = 2. From an unscaled uniform R the
+        box violations are 10⁴× the box and the AL 10⁹, and float32
+        rounding alone moves a 25-step trajectory."""
+        A, cp = compiled2[label]
+        dp = to_device(cp, dtype, dev)
+        assert mk.megakernel_eligible(dp, RANK, K, True, dtype), label
+        meta, data = mk.prepare_mega_data(dp, k=K, gtol_relative=True,
+                                          ptol_relative=True)
+        spec = mk.mega_spec_for(meta, RANK)
+        assert spec.armijo, label
+        rng = np.random.default_rng(seed)
+        Rn = rng.uniform(-1.0, 1.0, (dp.n, RANK))
+        if "mu-conductance" in label:
+            d = np.asarray(A.sum(axis=1)).reshape(-1)
+            Rn -= np.outer(np.ones(dp.n), d @ Rn / d.sum())
+            Rn /= np.sqrt(np.sum(d * np.sum(Rn * Rn, axis=1)))
+        else:
+            Rn /= 1.01 * np.linalg.norm(Rn, axis=1, keepdims=True)
+        R = np.zeros((dp.n_pad, RANK))
+        R[: dp.n] = Rn
+        lam = np.minimum(0.1 * rng.standard_normal(dp.m),
+                         dp.lam_ub.cpu().numpy())
+        t = lambda x: torch.tensor(x, dtype=dtype, device=dev)
+        return dp, meta, data, spec, t(R), t(lam), t(2.0)
+
+    def run_k2(which, spec, meta, data, R, lbfgs, lam, sigma, gtol, stag,
+               steps):
+        args = mk.mega_inputs(spec, RANK, data, R, lbfgs, lam, sigma, gtol,
+                              stag, steps)
+        fn = mk.mega_kernel_armijo if which == "kernel" \
+            else mk.mega_chunk_armijo_plain
+        out = fn(spec, *args)
+        torch.cuda.synchronize()
+        c, v = mk.mega_carry(spec, RANK, meta["m"], meta["pscale"], data,
+                             lam, sigma, *mk.rings_of(spec, args), out)
+        return c, v, float(out[3][5])     # the last step's α
+
+    # Each step count s = 0..25 runs from the same state through the kernel
+    # and through its plain version. μ-conductance's AL is stiff (the
+    # low-rank term ddᵀ, ‖d‖² ≈ 1.5e7 at G1), so rounding differences grow
+    # from step to step: in float64 by ~10³ over 25 steps, in float32 until
+    # the trajectories part within 8–9 steps, with or without an Armijo
+    # tie (a probe on the card, and the port's plain version against the
+    # JAX package's K2 on the CPU, show the same). So every case is held
+    # in float64 at every step to 1e-9 with the same α at every step;
+    # relaxed MaxCut, which is well conditioned, also in float32 over 25
+    # steps at K1's tolerances (1e-4 at s ≤ 1, 3e-3 after); μ-conductance
+    # in float32 at s ≤ 1 at 1e-4, with the step where the α first differ
+    # and the gap in ℒ after 25 steps reported.
+    worst2 = {}
+    for label, _, _ in cases2:
+        for dname, dtype in (("float32", torch.float32),
+                             ("float64", torch.float64)):
+            dp, meta, data, spec, R, lam, sigma = kernel_state2(label, dtype)
+            lb = lbfgs_init(K, dp.n_pad, RANK, dtype, dev)
+            runs = {w: [run_k2(w, spec, meta, data, R, lb, lam, sigma,
+                               1e-12, ninf, st) for st in range(26)]
+                    for w in ("kernel", "plain")}
+            stiff = "mu-conductance" in label and dname == "float32"
+            last = 1 if stiff else 25
+            errs = []
+            for st in range(last + 1):
+                (ck, vk, ak), (cp, vp, ap) = runs["kernel"][st], \
+                    runs["plain"][st]
+                assert ck.steps == cp.steps == st, (ck.steps, cp.steps)
+                assert ak == ap, (label, dname, st, ak, ap)
+                tol = (1e-4 if st <= 1 else 3e-3) \
+                    if dname == "float32" else 1e-9
+                Lk, Lp = float(ck.L_val), float(cp.L_val)
+                assert np.isfinite(Lk) and abs(Lk - Lp) / (abs(Lp) + 1) \
+                    < tol, (label, dname, st, Lk, Lp)
+                np.testing.assert_allclose(as_np(ck.R), as_np(cp.R),
+                                           rtol=tol, atol=tol * 10)
+                np.testing.assert_allclose(as_np(ck.vio_raw),
+                                           as_np(cp.vio_raw), rtol=tol,
+                                           atol=tol * 10)
+                assert abs(float(vk) - float(vp)) < tol * 10
+                assert abs(float(ck.grad_norm) - float(cp.grad_norm)) \
+                    / (float(cp.grad_norm) + 1e-9) < 0.05
+                if dname == "float64":
+                    # G = 2·S(y)·R carries σ·v·ddᵀR on μ-conductance, which
+                    # multiplies R's rounding-level differences: after 25
+                    # float64 steps the port's plain version and the JAX
+                    # package's K2 differ by 1.3e-6 of max|G| on this
+                    # state while R agrees to 6e-9 (on the CPU). So G and
+                    # the ring are held to their largest entry, at 1e-5
+                    for a, b_ in ((ck.G, cp.G), (ck.lbfgs.s_hist,
+                                                 cp.lbfgs.s_hist),
+                                  (ck.lbfgs.y_hist, cp.lbfgs.y_hist)):
+                        ref = np.max(np.abs(as_np(b_)))
+                        assert np.max(np.abs(as_np(a) - as_np(b_))) \
+                            <= 1e-5 * ref, (label, st)
+                    assert ck.lbfgs.head == cp.lbfgs.head
+                if st:
+                    errs.append(float(np.max(np.abs(as_np(ck.R)
+                                                    - as_np(cp.R)))))
+            first_diff = next((st for st in range(1, 26)
+                               if runs["kernel"][st][2]
+                               != runs["plain"][st][2]), None)
+            L25 = [float(runs[w][25][0].L_val) for w in ("kernel", "plain")]
+            gap25 = abs(L25[0] - L25[1]) / (abs(L25[1]) + 1)
+            # ring round trip: h + h steps equal 2h
+            h = 1 if stiff else 5
+            ch, _, _ = run_k2("kernel", spec, meta, data, R, lb, lam, sigma,
+                              1e-12, ninf, h)
+            chh, _, _ = run_k2("kernel", spec, meta, data, ch.R, ch.lbfgs,
+                               lam, sigma, 1e-12, ninf, h)
+            assert chh.steps == h
+            rt_tol = (1e-4 if stiff else 2e-3) if dname == "float32" \
+                else 1e-9
+            for w in ("kernel", "plain"):
+                np.testing.assert_allclose(as_np(chh.R),
+                                           as_np(runs[w][2 * h][0].R),
+                                           rtol=0, atol=rt_tol)
+            # gtol exit, from the plain version's state after one step (the
+            # start itself sits at a low gradient norm on μ-conductance):
+            # gtol at the first later record-low norm of the plain
+            # trajectory, where it stops
+            c1 = runs["plain"][1][0]
+            gns = [float(runs["plain"][st][0].grad_norm) for st in range(26)]
+            recs = [st for st in range(2, 26) if gns[st] < min(gns[1:st])]
+            assert recs, (label, dname, gns)
+            gtol = gns[recs[0]] * (1.0 + (1e-3 if dname == "float32"
+                                          else 1e-9))
+            s_g = min(st for st in range(2, 26) if gns[st] <= gtol) - 1
+            ce, _, _ = run_k2("kernel", spec, meta, data, c1.R, c1.lbfgs,
+                              lam, sigma, gtol, ninf, 10000)
+            pe, _, _ = run_k2("plain", spec, meta, data, c1.R, c1.lbfgs, lam,
+                              sigma, gtol, ninf, 10000)
+            assert 0 < ce.steps < 10000 and float(ce.grad_norm) <= gtol
+            assert 0 < pe.steps < 10000 and float(pe.grad_norm) <= gtol
+            if dname == "float64":
+                assert ce.steps == pe.steps == s_g, (ce.steps, pe.steps, s_g)
+            worst2[(label, dname)] = max(errs)
+            say("K2", f"{label} n_pad {dp.n_pad} rp {spec.rp} J {spec.J} "
+                f"wide {spec.n_wide} {dname}: steps 0..{last} agree (max "
+                f"|ΔR| {max(errs):.3e}); α first differs at step "
+                f"{first_diff}, ℒ after 25 steps differs by {gap25:.2e} "
+                f"(relative); {h}+{h} = {2 * h} steps, gtol exit after "
+                f"{ce.steps} (plain {pe.steps}) steps")
+
+    # ---- 7. the inequality slice ---------------------------------------------
+    A = g800
+    C2, As2, b2, ct2 = mucond(A)
+    volG = float(A.sum())
+    ub, lbox = mu_conductance_ub(volG, MU), mu_conductance_lb(volG, MU)
+    kw2 = dict(constraint_types=ct2, ptol=1e-2, objtol=1e-2,
+               prior_trace_bound=A.shape[0] * ub, dtype="float32", seed=0,
+               printlevel=0)
+    mk.K1.launches = mk.K2.launches = 0
+    t0 = time.time()
+    res = sdplr(C2, As2, b2, RANK, **kw2)
+    torch.cuda.synchronize()
+    cold2_s = time.time() - t0
+    launches2, k1_during = mk.K2.launches, mk.K1.launches
+    obj, pinf, gap = res["obj"], res["primal_vio"], res["rel_duality_gap"]
+    rel = abs(obj - JAX_MUCOND_G1_OBJ) / abs(JAX_MUCOND_G1_OBJ)
+    X_diag = np.sum(res["R"] ** 2, axis=1)
+    d = np.asarray(A.sum(axis=1)).reshape(-1)
+    normb = float(np.linalg.norm(b2))
+    box = (float(np.max(X_diag - ub)), float(np.max(lbox - X_diag)))
+    vol = float(d @ X_diag) - 1.0
+    say("mucond", f"G1-shaped mu-conductance n={A.shape[0]} m={len(b2)}: "
+        f"engine {res['inner_engine']}, K2 launches {launches2}, K1 "
+        f"launches {k1_during}, obj {obj!r}, pinfeas {pinf:.3e}, gap "
+        f"{gap:.3e}, iterations {res['iter']}, majors {res['majoriter']}, "
+        f"rank {res['r']}, dual bounds {res['dual_bounds_computed']} "
+        f"({res['dual_passes']} Lanczos passes), |obj - JAX|/|JAX| "
+        f"{rel:.3e}, max(X_ii - ub) "
+        f"{box[0]:.3e}, max(lb - X_ii) {box[1]:.3e}, <D,X> - 1 {vol:.3e}, "
+        f"first solve {cold2_s:.3f} s")
+    assert res["inner_engine"] == ENGINE_KERNEL, res["inner_engine"]
+    assert launches2 > 0 and k1_during == 0, (launches2, k1_during)
+    assert np.isfinite(obj) and np.all(np.isfinite(res["R"]))
+    assert res["R"].shape == (800, res["r"])
+    assert pinf <= 1e-2 and gap <= 1e-2, (pinf, gap)
+    assert max(box) <= 1e-2 * normb and abs(vol) <= 2e-2 * normb, (box, vol)
+    assert rel <= 1e-2, (obj, JAX_MUCOND_G1_OBJ)
+
+    # ---- 8. K2 times ---------------------------------------------------------
+    label = "G1-shaped mu-conductance"
+    dp, meta, data, spec, R, lam, sigma = kernel_state2(label, torch.float32)
+    lb = lbfgs_init(K, dp.n_pad, RANK, torch.float32, dev)
+    base2 = mk.mega_inputs(spec, RANK, data, R, lb, lam, sigma, -1.0, ninf,
+                           1)
+
+    def time_k2(fn, steps, reps):
+        """ms of one launch of ``steps`` iterations (median of reps)."""
+        scal = base2[0].clone()
+        scal[3] = steps
+        out = []
+        for _ in range(reps + 1):
+            s_ring, y_ring = base2[8].clone(), base2[9].clone()
+            args = (scal,) + base2[1:8] + (s_ring, y_ring) + base2[10:]
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            o = fn(spec, *args)
+            e1.record()
+            torch.cuda.synchronize()
+            assert int(o[3][3]) == steps, (int(o[3][3]), steps)
+            out.append(e0.elapsed_time(e1))
+        return statistics.median(out[1:])
+
+    L0, vio0, G0, y0, gn0, _ = al_value_grad(dp, R, lam, sigma, True, True)
+
+    def time_torch_armijo(steps, reps=2):
+        out = []
+        for _ in range(reps + 1):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            c, _ = inner_chunk(dp, R, G0, y0, vio0, L0, gn0,
+                               lbfgs_init(K, dp.n_pad, RANK, torch.float32,
+                                          dev),
+                               lam, sigma, -1.0, ninf, steps, k=K,
+                               use_armijo=True, gtol_relative=True,
+                               ptol_relative=True)
+            e1.record()
+            torch.cuda.synchronize()
+            assert c.steps == steps
+            out.append(e0.elapsed_time(e1))
+        return statistics.median(out[1:])
+
+    turns2 = {"plain": [], "kernel": [], "torch": []}
+    for who in ("plain", "kernel", "kernel", "plain"):
+        if who == "kernel":
+            t100 = time_k2(mk.mega_kernel_armijo, 100, 3)
+            t2000 = time_k2(mk.mega_kernel_armijo, 2000, 3)
+            turns2["kernel"].append((t100, (t2000 - t100) / 1900 * 1e3))
+        else:
+            t20 = time_k2(mk.mega_chunk_armijo_plain, 20, 2)
+            t100 = time_k2(mk.mega_chunk_armijo_plain, 100, 2)
+            turns2["plain"].append((t100, (t100 - t20) / 80 * 1e3))
+            t20, t100 = time_torch_armijo(20), time_torch_armijo(100)
+            turns2["torch"].append((t100, (t100 - t20) / 80 * 1e3))
+    med2 = {w: (statistics.median(a for a, _ in v),
+                statistics.median(b for _, b in v))
+            for w, v in turns2.items()}
+
+    n, rp, J, n_w = spec.n_pad, spec.rp, spec.J, spec.n_wide
+    lrc = sum(spec.lr_sizes)
+    # per iteration: D·C, the vector work of K1's iteration, the channel
+    # state, and one Armijo candidate (the least the search needs)
+    it_ops = (2.0 * rp * n * n + (8 * K + 29) * rp * n + 6 * rp * n * lrc
+              + (20 + 8) * J * n + 4 * n_w * n)
+    ops2 = 2.0 * rp * n * n + iters * it_ops
+    nbytes2 = 4 * (n * n + 2 * rp * n + 5 * J * n + n_w * n
+                   + 2 * 2 * K * rp * n + 3 * n * lrc + 2 * rp * n)
+    bound2_ms = 1e3 * max(nbytes2 / PEAK_BYTES_PER_S,
+                          ops2 / PEAK_FLOPS["float32"])
+    bound2_by = "operations" if ops2 / PEAK_FLOPS["float32"] \
+        > nbytes2 / PEAK_BYTES_PER_S else "bytes"
+    bound2_us_iter = 1e6 * it_ops / PEAK_FLOPS["float32"]
+
+    t0 = time.time()
+    res2 = sdplr(C2, As2, b2, RANK, **kw2)
+    torch.cuda.synchronize()
+    warm2_s = time.time() - t0
+    assert res2["primal_vio"] <= 1e-2 and res2["rel_duality_gap"] <= 1e-2
+    say("times2", f"mu-conductance G1 shapes n_pad {n} rp {rp} J {J} wide "
+        f"{n_w} k {K} float32: K2 {med2['kernel'][1]:.2f} us/iter (100-step "
+        f"launch {med2['kernel'][0]:.3f} ms), plain version "
+        f"{med2['plain'][1]:.1f} us/iter (100 steps {med2['plain'][0]:.1f} "
+        f"ms), torch Armijo inner loop {med2['torch'][1]:.1f} us/iter (100 "
+        f"steps {med2['torch'][0]:.1f} ms), bound {bound2_us_iter:.3f} "
+        f"us/iter ({bound2_ms:.4f} ms per 100-step launch, {bound2_by}); "
+        f"turns {json.dumps(turns2)}; K2 launches per solve {launches2}; "
+        f"warm solve {warm2_s:.3f} s ({res2['iter']} iterations), first "
+        f"solve {cold2_s:.3f} s; nvidia-smi: {smi}")
+
     kernels = [{
         "name": "K1 inner-loop megakernel (100 L-BFGS iterations, G1 shapes,"
                 " float32)",
@@ -376,6 +711,19 @@ def main():
         "plain_ms": med["plain"][0],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "K2 Armijo inner-loop megakernel (100 L-BFGS iterations, "
+                "mu-conductance G1 shapes, float32)",
+        "route": "cuda",
+        "source": "sdplrplus_tpu_torch/csrc/megakernel_armijo.cu",
+        "replaces": "sdplrplus_tpu/ops/megakernel.py:485",
+        "launches": launches2,
+        "max_abs_err": worst2[(label, "float32")],
+        "ms": med2["kernel"][0],
+        "plain_ms": med2["plain"][0],
+        "bound_ms": bound2_ms,
+        "bound_by": bound2_by,
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

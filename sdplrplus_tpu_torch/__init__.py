@@ -2,9 +2,11 @@
 package ``sdplrplus_tpu`` ported to an NVIDIA H100.
 
 Burer-Monteiro factorization + augmented Lagrangian + L-BFGS + exact
-quartic line search + Lanczos suboptimality bound + dynamic rank
-doubling, with the inner loop of the dense engine as one hand-written
-CUDA kernel (ops/megakernel.py, csrc/megakernel.cu). The entry points
+quartic (equality) or Armijo (inequality) line search + Lanczos
+suboptimality bound + dynamic rank doubling, with the inner loop as one
+hand-written CUDA kernel: K1 for equality problems and K2 for the
+inequality families (ops/megakernel.py, csrc/megakernel.cu,
+csrc/megakernel_armijo.cu). The entry points
 run on the card unless the caller passes ``device="cpu"``. This package
 imports neither JAX nor ``sdplrplus_tpu``.
 """

@@ -101,10 +101,11 @@ class SolverConfig:
     # representation — 3 MXU contractions/iter) or 'two_loop' (classic
     # recursion — 4k sequential dots/axpys). Identical math.
     lbfgs_impl: str = "compact"
-    # inner-loop engine: 'auto' takes the CUDA megakernel
-    # (ops/megakernel.py) when the tensors are on CUDA and the problem is
-    # eligible (dense C, equality-only, diagonal row<->constraint
-    # bijection), else the torch inner loop; 'mega' takes the kernel on
+    # inner-loop engine: 'auto' takes a CUDA megakernel
+    # (ops/megakernel.py: K1 for equality problems, K2 for inequalities)
+    # when the tensors are on CUDA and the problem is eligible (every
+    # constraint entry diagonal, one per narrow constraint; K1 also needs
+    # dense C), else the torch inner loop; 'mega' takes the kernel on
     # CUDA and its plain version on the CPU (error if ineligible); 'xla'
     # takes the torch inner loop (the name is kept from the JAX package).
     inner_impl: str = "auto"

@@ -28,7 +28,7 @@ def _get(obj, name, default=None):
 
 
 def _np(x):
-    return None if x is None else np.asarray(x)
+    return None if x is None else np.array(x)
 
 
 def device_problem_from_numpy(fields, dtype, device="cpu") -> DeviceProblem:
@@ -54,16 +54,20 @@ def _lbfgs_from_numpy(fields, dtype, device) -> LBFGSState:
 
 
 def inner_carry_from_numpy(fields, dtype, device="cpu") -> InnerCarry:
-    """The JAX ``InnerCarry`` (solver/inner.py) with its ``LBFGSState``."""
+    """The JAX ``InnerCarry`` (solver/inner.py) with its ``LBFGSState``
+    and, on the fast-diagonal engine, the carried ``CX`` (None stays
+    None)."""
     device = torch.device(device)
     t = lambda f: torch.as_tensor(_np(_get(fields, f)), dtype=dtype,
                                   device=device)
+    CX = _get(fields, "CX")
     return InnerCarry(
         R=t("R"), G=t("G"), y_full=t("y_full"), vio_raw=t("vio_raw"),
         L_val=t("L_val"), grad_norm=t("grad_norm"),
         lbfgs=_lbfgs_from_numpy(_get(fields, "lbfgs"), dtype, device),
         steps=int(np.asarray(_get(fields, "steps"))),
         stagnated=bool(np.asarray(_get(fields, "stagnated"))),
+        CX=None if CX is None else t("CX"),
     )
 
 

@@ -130,8 +130,7 @@ class DeviceProblem:
 
 def fast_diag_eligible(dp) -> bool:
     """Whether the fast-diagonal single-SpMM inner path applies: every
-    sparse-constraint entry on the diagonal, no dense or entrywise mode.
-    (That engine is a later slice of the port.)"""
+    sparse-constraint entry on the diagonal, no dense or entrywise mode."""
     return bool(
         getattr(dp, "all_cons_diagonal", False)
         and getattr(dp, "C_dense", None) is None

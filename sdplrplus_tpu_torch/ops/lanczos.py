@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ``ops/lanczos.py`` (reference: the
 randomized Lanczos of src/coreop.jl:461-514). The three-term recurrence
-runs on the tensors' device with the dense-engine matvec S·v and no host
-sync per step (breakdown is a mask, as in the JAX loop). The start
+runs on the tensors' device with the matvec S·v of ops/adjoint.apply_S
+(a matmul with dense C, one ELL SpMM with sparse C) and no host sync per
+step (breakdown is a mask, as in the JAX loop). The start
 vector is drawn from the solve's ``torch.Generator`` (``lanczos_v0``) or
 passed in, so tests can hand both packages the same vector.
 

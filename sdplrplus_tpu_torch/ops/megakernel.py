@@ -1,36 +1,45 @@
-"""K1: the whole inner L-BFGS loop of the dense engine as one CUDA launch.
+"""The inner L-BFGS loop as one CUDA launch: K1 (equality problems, exact
+quartic line search) and K2 (inequality families, Armijo backtracking).
 
 Counterpart of the JAX package's ``ops/megakernel.py``, whose Pallas TPU
-kernel ``_make_kernel`` (launched by ``_call_kernel``) this replaces. The
-hand-written Hopper kernel is ``csrc/megakernel.cu`` (CUDA C++ for
-sm_90a, plain C interface, loaded with ``ctypes``; built at first use by
-``utils/build.py``). Its design notes — one cooperative persistent grid
-per inner activation, column slabs per block, every dot batched behind
-one grid-wide barrier and summed in the same fixed order by every block —
-are at the top of that file.
+kernels ``_make_kernel`` (K1, launched by ``_call_kernel``) and
+``_make_kernel_armijo`` (K2, launched by ``_call_kernel_armijo``) these
+replace. The hand-written Hopper kernels are ``csrc/megakernel.cu`` and
+``csrc/megakernel_armijo.cu`` (CUDA C++ for sm_90a, plain C interface,
+loaded with ``ctypes``; built at first use by ``utils/build.py``). Their
+design notes — one cooperative persistent grid per inner activation,
+column slabs per block, every dot batched behind one grid-wide barrier
+and summed in the same fixed order by every block — are at the top of
+those files.
 
-What bounds it: per iteration D·C is 2·rp·n_pad² FP32 FLOPs (25.7 MFLOP
-at n_pad = 896 and rp = 16, about 0.38 µs at 67 TFLOP/s), and C is read
-once per launch from L2. The 2k + 3 grid barriers per iteration set the
-time of this first version, not C.
+What bounds them: per iteration D·C is 2·rp·n_pad² FP32 FLOPs (25.7
+MFLOP at n_pad = 896 and rp = 16, about 0.38 µs at 67 TFLOP/s), and C is
+read once per launch from L2. The 2k + 3 grid barriers per iteration set
+the time of these first versions, not C.
 
-Layout and contract are those of the JAX kernel: the factor, gradient
+Layout and contract are those of the JAX kernels: the factor, gradient
 and ring live transposed and rank-padded, (rp, n_pad) and (k·rp, n_pad),
 so each column of the kernel's arrays is one row of R. ``mega_chunk``
-keeps the ``mega_chunk_traced`` contract (megakernel.py:1184-1269):
-R, the L-BFGS state and the multipliers in, (InnerCarry, vio_norm) out.
-On a CUDA tensor it launches the kernel (and counts the launch in
-``K1.launches``); on a CPU tensor it runs ``mega_chunk_plain``, the
-kernel's loop written step by step in torch. It never falls back from
-one to the other.
+keeps the ``mega_chunk_traced`` contract (megakernel.py:1184-1269, and
+``mega_chunk_traced_armijo`` :1094-1181 for K2): R, the L-BFGS state and
+the multipliers in, (InnerCarry, vio_norm) out. On a CUDA tensor it
+launches the kernel (and counts the launch in ``K1.launches`` or
+``K2.launches``); on a CPU tensor it runs the plain version
+(``mega_chunk_plain``, ``mega_chunk_armijo_plain``), the kernel's loop
+written step by step in torch. It never falls back from one to the
+other.
 
-Eligibility is structural (dense C, equality constraints only, one
-diagonal entry per narrow constraint) plus this layout's limits: n_pad ≤
-2048 and a multiple of 64, padded rank rp ≤ 64, at most 16 ring slots,
-at most 4 low-rank terms with 8 columns in all. That covers n_pad 896
-and 2048 up to the Barvinok–Pataki rank cap (41 at m = 800, 64 at
-m = 2000). C then takes at most 16.8 MB (f32) or 33.6 MB (f64) of the
-50 MB L2. The kernel also checks at launch that its grid is co-resident.
+Eligibility is structural plus this layout's limits: n_pad ≤ 2048 and a
+multiple of 64, padded rank rp ≤ 64, at most 16 ring slots, at most 4
+low-rank equality terms with 8 columns in all. K1 takes dense-C equality
+problems with one diagonal entry per constraint; K2 takes any problem
+whose constraint entries all lie on the diagonal, with at most 4
+channels per row, at most 2 wide constraints and one diagonal entry per
+narrow constraint (C densified from the ELL layout). That covers n_pad
+896 and 2048 up to the Barvinok–Pataki rank cap (41 at m = 800, 57 at
+m = 1602, 64 at m = 2000). C then takes at most 16.8 MB (f32) or
+33.6 MB (f64) of the 50 MB L2. The kernels also check at launch that
+their grid is co-resident.
 """
 
 from __future__ import annotations
@@ -51,6 +60,10 @@ MAX_N_PAD = 2048
 MAX_RP = 64
 MAX_K = 16
 N_CHUNK = 64  # the kernel's n-axis chunk (IC in csrc/megakernel.cu)
+MAX_DIAG_CHANNELS = 4   # K2: diagonal constraint channels per row
+MAX_WIDE = 2            # K2: wide diagonal constraints
+ARMIJO_C = 1e-4         # K2's sufficient-decrease constant
+N_CAND = 51             # K2's candidate steps α_max·2⁻ᵗ, t = 0..50
 _PI = 3.141592653589793
 
 
@@ -71,6 +84,13 @@ class MegaSpec:
     lr_is_obj: Tuple[bool, ...]     # True: the term belongs to the objective
     lr_gids: Tuple[int, ...] = ()   # global constraint ids (wrapper only)
     alpha_max: float = 1.0
+    # K2 (inequality families): J diagonal constraint channels per row,
+    # n_wide wide diagonal constraints, the sharp AL and Armijo
+    # backtracking; armijo=False is K1
+    armijo: bool = False
+    J: int = 1
+    n_wide: int = 0
+    wide_gids: Tuple[int, ...] = ()   # their global ids (wrapper only)
 
     @property
     def n_lr(self):
@@ -82,7 +102,7 @@ class MegaSpec:
 
     @property
     def n_scal_out(self):
-        return 7 + self.k + max(len(self.lr_cons), 1)
+        return 7 + self.k + max(len(self.lr_cons), 1) + self.n_wide
 
 
 # --------------------------------------------------------------------------
@@ -99,37 +119,52 @@ def _layout_ok(dp: DeviceProblem, r: int, k: int) -> bool:
     )
 
 
+def _entry_counts(dp: DeviceProblem, cid: np.ndarray) -> np.ndarray:
+    """How often each constraint id appears among the diagonal slots."""
+    return np.bincount(cid[cid < dp.m], minlength=max(dp.m, 1))
+
+
 def megakernel_eligible(dp: DeviceProblem, r: int, k: int, use_armijo: bool,
                         dtype) -> bool:
-    """True when K1 can run this problem: dense C, equality constraints
-    only, a row↔constraint bijection on the diagonal, at most
-    MAX_LR_TERMS low-rank equality terms, within the layout's limits.
-    Inequality / multi-channel / wide-constraint families belong to the
-    Armijo kernel K2, which is a later slice of the port."""
+    """True when a megakernel can run this problem (megakernel.py:870-908):
+    K2 for inequality / multi-channel / wide-constraint problems (every
+    constraint entry diagonal, at most MAX_DIAG_CHANNELS channels per row,
+    at most MAX_WIDE wide constraints, one diagonal entry per narrow
+    constraint), K1 otherwise (dense C, one diagonal entry per
+    constraint); both with at most MAX_LR_TERMS low-rank equality terms
+    and within the layout's limits."""
     if dtype not in (torch.float32, torch.float64):
         return False
-    if len(dp.lowrank) > MAX_LR_TERMS:
+    if dp.ew_c2 is not None or len(dp.lowrank) > MAX_LR_TERMS:
         return False
     lam_ub = dp.lam_ub.detach().cpu().numpy()
     if any(t.gid < dp.m and np.isfinite(lam_ub[t.gid]) for t in dp.lowrank):
         return False
     if not _layout_ok(dp, r, k):
         return False
+    lr_gids = {t.gid for t in dp.lowrank}
+    cid = dp.diag_cid.detach().cpu().numpy()
     if use_armijo or dp.has_inequalities or dp.wide_gids:
-        return False
+        # the per-slot channel violation w·rv − b is that constraint's
+        # value only under the one-entry bijection
+        if not (dp.all_cons_diagonal
+                and 1 <= dp.diag_width <= MAX_DIAG_CHANNELS
+                and len(dp.wide_gids) <= MAX_WIDE):
+            return False
+        counts = _entry_counts(dp, cid.ravel())
+        skip = set(dp.wide_gids) | lr_gids
+        return all(counts[g] == 1 for g in range(dp.m) if g not in skip)
     if dp.C_dense is None or dp.diag_width != 1:
         return False
     # row<->constraint bijection: every non-lowrank constraint id appears
     # exactly once on the diagonal
-    cid = dp.diag_cid[:, 0].detach().cpu().numpy()
-    lr_gids = {t.gid for t in dp.lowrank}
-    counts = np.bincount(cid[cid < dp.m], minlength=max(dp.m, 1))
+    counts = _entry_counts(dp, cid[:, 0])
     return all(counts[g] == (0 if g in lr_gids else 1) for g in range(dp.m))
 
 
 @dataclasses.dataclass(frozen=True)
 class MegaData:
-    """Problem tensors the kernel needs, on the solve's device."""
+    """Problem tensors K1 needs, on the solve's device."""
 
     C: torch.Tensor          # (n_pad, n_pad) dense cost
     cid_dev: torch.Tensor    # (n_pad,) row -> constraint id (m = none)
@@ -143,25 +178,34 @@ class MegaData:
     lr_d: torch.Tensor       # (Σs,)
 
 
-def prepare_mega_data(dp: DeviceProblem, *, k: int, gtol_relative: bool,
-                      ptol_relative: bool):
-    """Host-side index prep. Returns (meta, MegaData); meta carries the
-    spec ingredients."""
-    if dp.has_inequalities or dp.wide_gids or dp.diag_width != 1 \
-            or dp.C_dense is None:
-        raise NotImplementedError(
-            "the Armijo megakernel K2 (inequality, multi-channel and wide "
-            "diagonal families) is ROADMAP slice C")
+@dataclasses.dataclass(frozen=True)
+class MegaDataA:
+    """Problem tensors K2 needs, on the solve's device."""
+
+    C: torch.Tensor          # (n_pad, n_pad) dense cost (densified here)
+    cid_ch: torch.Tensor     # (J, n_pad) channel -> constraint id (m = none)
+    W_ch: torch.Tensor       # (J, n_pad) channel weights
+    B_ch: torch.Tensor       # (J, n_pad) channel rhs
+    UB_ch: torch.Tensor      # (J, n_pad) channel λ upper bounds
+    WW: torch.Tensor         # (max(n_wide, 1), n_pad) wide weight rows
+    b_wide: torch.Tensor     # (n_wide,)
+    ub_wide: torch.Tensor    # (n_wide,)
+    b_lr: torch.Tensor       # (n_lr_cons,)
+    lam_ub: torch.Tensor     # (m,)
+    vio_lb: torch.Tensor     # (m,)
+    lr_B: torch.Tensor       # (n_pad, Σs)
+    lr_Bdt: torch.Tensor     # (Σs, n_pad)
+    lr_d: torch.Tensor       # (Σs,)
+
+
+def _lowrank_prep(dp: DeviceProblem, k: int, gtol_relative: bool,
+                  ptol_relative: bool):
+    """The spec ingredients and low-rank tensors both kernels share:
+    (meta, lr_B, lr_Bdt, lr_d, b_lr)."""
     dtype, dev = dp.dtype, dp.device
     m, n_pad = dp.m, dp.n_pad
-    cid = dp.diag_cid[:, 0].detach().cpu().numpy().astype(np.int64)
-    w_np = dp.diag_w[:, 0].detach().cpu().numpy()
-    valid = cid < m
     b_np = dp.b.detach().cpu().numpy().astype(np.float64)
-    b_row_np = (np.where(valid, b_np[np.minimum(cid, max(m - 1, 0))], 0.0)
-                if m else np.zeros(n_pad))
     lr_terms = list(dp.lowrank)
-    lr_cons_gids = [t.gid for t in lr_terms if t.gid != m]
     t_ = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
     if lr_terms:
         lr_B = torch.cat([t.B for t in lr_terms], dim=1)
@@ -178,15 +222,96 @@ def prepare_mega_data(dp: DeviceProblem, *, k: int, gtol_relative: bool,
         lr_is_obj=tuple(t.gid == m for t in lr_terms),
         lr_gids=tuple(t.gid for t in lr_terms),
     )
+    b_lr = t_([b_np[t.gid] for t in lr_terms if t.gid != m])
+    return (meta, lr_B.contiguous(), lr_Bdt.contiguous(), lr_d.contiguous(),
+            b_lr)
+
+
+def prepare_mega_data(dp: DeviceProblem, *, k: int, gtol_relative: bool,
+                      ptol_relative: bool):
+    """Host-side index prep. Returns (meta, MegaData), or (meta,
+    MegaDataA) for K2's families; meta carries the spec ingredients."""
+    if dp.has_inequalities or dp.wide_gids or dp.diag_width != 1 \
+            or dp.C_dense is None:
+        return prepare_mega_data_armijo(dp, k=k, gtol_relative=gtol_relative,
+                                        ptol_relative=ptol_relative)
+    dtype, dev = dp.dtype, dp.device
+    m, n_pad = dp.m, dp.n_pad
+    cid = dp.diag_cid[:, 0].detach().cpu().numpy().astype(np.int64)
+    w_np = dp.diag_w[:, 0].detach().cpu().numpy()
+    valid = cid < m
+    b_np = dp.b.detach().cpu().numpy().astype(np.float64)
+    b_row_np = (np.where(valid, b_np[np.minimum(cid, max(m - 1, 0))], 0.0)
+                if m else np.zeros(n_pad))
+    meta, lr_B, lr_Bdt, lr_d, b_lr = _lowrank_prep(dp, k, gtol_relative,
+                                                   ptol_relative)
+    t_ = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
     data = MegaData(
         C=dp.C_dense.contiguous(),
         cid_dev=torch.as_tensor(np.where(valid, cid, m), device=dev),
         w_row=t_(w_np).reshape(1, n_pad),
         b_row=t_(b_row_np).reshape(1, n_pad),
-        b_lr=t_([b_np[g] for g in lr_cons_gids]),
-        lam_ub=dp.lam_ub, vio_lb=dp.vio_lb,
-        lr_B=lr_B.contiguous(), lr_Bdt=lr_Bdt.contiguous(),
-        lr_d=lr_d.contiguous(),
+        b_lr=b_lr, lam_ub=dp.lam_ub, vio_lb=dp.vio_lb,
+        lr_B=lr_B, lr_Bdt=lr_Bdt, lr_d=lr_d,
+    )
+    return meta, data
+
+
+def _densify_C(dp: DeviceProblem) -> np.ndarray:
+    """The sparse part of C as a dense (n_pad, n_pad) array, from the
+    compiled two-tier ELL layout (megakernel.py:943-958; padding slots
+    carry value 0, so blanket adds are safe)."""
+    n_pad = dp.n_pad
+    C = np.zeros((n_pad, n_pad))
+    cols = dp.ell_cols.detach().cpu().numpy()
+    vals = dp.cell_val.detach().cpu().numpy().astype(np.float64)
+    rows = np.repeat(np.arange(n_pad), cols.shape[1])
+    np.add.at(C, (rows, cols.reshape(-1)), vals.reshape(-1))
+    if dp.has_ell2:
+        r2 = dp.ell2_rows.detach().cpu().numpy()
+        c2 = dp.ell2_cols.detach().cpu().numpy()
+        v2 = dp.cell2_val.detach().cpu().numpy().astype(np.float64)
+        np.add.at(C, (np.repeat(r2, c2.shape[1]), c2.reshape(-1)),
+                  v2.reshape(-1))
+    return C
+
+
+def prepare_mega_data_armijo(dp: DeviceProblem, *, k: int,
+                             gtol_relative: bool, ptol_relative: bool):
+    """Host-side prep for K2 (megakernel.py:961-1024): the diagonal
+    constraint slots split into per-row channels (wide constraints moved
+    to their dense weight rows), C densified from the ELL layout, the
+    per-channel rhs and λ upper-bound rows. Returns (meta, MegaDataA)."""
+    dtype, dev = dp.dtype, dp.device
+    m, n_pad = dp.m, dp.n_pad
+    J = max(dp.diag_width, 1)
+    cid = dp.diag_cid.detach().cpu().numpy().astype(np.int64)   # (n_pad, J)
+    w = dp.diag_w.detach().cpu().numpy().astype(np.float64)
+    wide_gids = list(dp.wide_gids)
+    is_wide = np.isin(cid, wide_gids)
+    cid_ch = np.where(is_wide, m, cid)
+    w_ch = np.where(is_wide, 0.0, w)
+    b_np = dp.b.detach().cpu().numpy().astype(np.float64)
+    ub_np = dp.lam_ub.detach().cpu().numpy().astype(np.float64)
+    b_ext = np.concatenate([b_np, [0.0]])
+    ub_ext = np.concatenate([ub_np, [np.inf]])
+    WW = dp.wide_diag_w.detach().cpu().numpy().astype(np.float64)
+    if WW.shape[0] == 0:
+        WW = np.zeros((1, n_pad))
+    meta, lr_B, lr_Bdt, lr_d, b_lr = _lowrank_prep(dp, k, gtol_relative,
+                                                   ptol_relative)
+    meta.update(armijo=True, J=J, n_wide=len(wide_gids),
+                wide_gids=tuple(int(g) for g in wide_gids))
+    t_ = lambda x: torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                                   device=dev)
+    C = dp.C_dense if dp.C_dense is not None else t_(_densify_C(dp))
+    data = MegaDataA(
+        C=C.contiguous(),
+        cid_ch=torch.as_tensor(np.ascontiguousarray(cid_ch.T), device=dev),
+        W_ch=t_(w_ch.T), B_ch=t_(b_ext[cid_ch].T), UB_ch=t_(ub_ext[cid_ch].T),
+        WW=t_(WW), b_wide=t_(b_np[wide_gids]), ub_wide=t_(ub_np[wide_gids]),
+        b_lr=b_lr, lam_ub=dp.lam_ub, vio_lb=dp.vio_lb,
+        lr_B=lr_B, lr_Bdt=lr_Bdt, lr_d=lr_d,
     )
     return meta, data
 
@@ -196,7 +321,9 @@ def mega_spec_for(meta: dict, r: int) -> MegaSpec:
         n_pad=meta["n_pad"], rp=_round_up(max(r, 1), 8), k=meta["kk"],
         use_hist=meta["use_hist"], gscale=meta["gscale"],
         lr_sizes=meta["lr_sizes"], lr_is_obj=meta["lr_is_obj"],
-        lr_gids=meta["lr_gids"],
+        lr_gids=meta["lr_gids"], armijo=bool(meta.get("armijo", False)),
+        J=int(meta.get("J", 1)), n_wide=int(meta.get("n_wide", 0)),
+        wide_gids=tuple(meta.get("wide_gids", ())),
     )
 
 
@@ -287,6 +414,42 @@ def _lr_slices(spec: MegaSpec):
     return [slice(off[t], off[t + 1]) for t in range(spec.n_lr)]
 
 
+def _two_loop_plain(spec: MegaSpec, G, s_ring, y_ring, rho, head: int):
+    """The L-BFGS direction −q of the two-loop recursion over the ring."""
+    rp, k = spec.rp, spec.k
+    q = G
+    a_vals = []
+    for i in range(k):
+        jj = (head - i) % k
+        s_j = s_ring[jj * rp:(jj + 1) * rp]
+        y_j = y_ring[jj * rp:(jj + 1) * rp]
+        a = rho[jj] * torch.sum(s_j * q)
+        q = q - a * y_j
+        a_vals.append((jj, a))
+    for i in range(k - 1, -1, -1):
+        jj, a = a_vals[i]
+        s_j = s_ring[jj * rp:(jj + 1) * rp]
+        y_j = y_ring[jj * rp:(jj + 1) * rp]
+        bq = rho[jj] * torch.sum(y_j * q)
+        q = q + (a - bq) * s_j
+    return -q
+
+
+def _push_plain(spec: MegaSpec, s_ring, y_ring, rho, head: int, alpha,
+                direction, G, G_new) -> int:
+    """Push (s, y) = (α·D, G_new − G) into the ring in place; returns the
+    new head."""
+    rp, k = spec.rp, spec.k
+    head_new = (head + 1) % k
+    s_new = alpha * direction
+    y_new = G_new - G
+    ys = torch.sum(y_new * s_new)
+    s_ring[head_new * rp:(head_new + 1) * rp] = s_new
+    y_ring[head_new * rp:(head_new + 1) * rp] = y_new
+    rho[head_new] = 1.0 / ys
+    return head_new
+
+
 def mega_chunk_plain(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
                      s_ring, y_ring, lr_B, lr_Bdt, lr_d):
     """The kernel's loop, step by step in torch, on the kernel's layout:
@@ -295,7 +458,7 @@ def mega_chunk_plain(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
     ``s_ring``/``y_ring`` (k·rp, n_pad) in place. The scalar line search
     runs on the host in the working dtype; everything of size n runs on
     the tensors' device."""
-    rp, k = spec.rp, spec.k
+    k = spec.k
     dtype, dev = Rt_in.dtype, Rt_in.device
     eps = torch.finfo(dtype).eps
     host = lambda x: x.detach().to("cpu")
@@ -356,22 +519,7 @@ def mega_chunk_plain(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
     while float(gnorm) > cur_gtol and steps < max_steps and not stag:
         # direction: two-loop recursion over the ring
         if spec.use_hist:
-            q = G
-            a_vals = []
-            for i in range(k):
-                jj = (head - i) % k
-                s_j = s_ring[jj * rp:(jj + 1) * rp]
-                y_j = y_ring[jj * rp:(jj + 1) * rp]
-                a = rho[jj] * torch.sum(s_j * q)
-                q = q - a * y_j
-                a_vals.append((jj, a))
-            for i in range(k - 1, -1, -1):
-                jj, a = a_vals[i]
-                s_j = s_ring[jj * rp:(jj + 1) * rp]
-                y_j = y_ring[jj * rp:(jj + 1) * rp]
-                bq = rho[jj] * torch.sum(y_j * q)
-                q = q + (a - bq) * s_j
-            direction = -q
+            direction = _two_loop_plain(spec, G, s_ring, y_ring, rho, head)
             descent = float(torch.sum(direction * G))
             if math.isnan(descent) or descent >= 0.0:
                 direction = -G
@@ -432,14 +580,8 @@ def mega_chunk_plain(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
 
         # ring push, skipped when stagnating
         if spec.use_hist and not stag:
-            head_new = (head + 1) % k
-            s_new = alpha * direction
-            y_new = G_new - G
-            ys = torch.sum(y_new * s_new)
-            s_ring[head_new * rp:(head_new + 1) * rp] = s_new
-            y_ring[head_new * rp:(head_new + 1) * rp] = y_new
-            rho[head_new] = 1.0 / ys
-            head = head_new
+            head = _push_plain(spec, s_ring, y_ring, rho, head, alpha,
+                               direction, G, G_new)
         G = G_new
         L_val = L_new
         steps += 1
@@ -455,6 +597,181 @@ def mega_chunk_plain(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
     oscal[7:7 + k] = rho
     for i in range(n_lc):
         oscal[7 + k + i] = vio_lr[i]
+    return Rt, G, vio, oscal
+
+
+def armijo_steps(alpha_max: float, dtype, device) -> torch.Tensor:
+    """K2's candidate steps α_max·2⁻ᵗ, t = 0..N_CAND−1, halved exactly on
+    the host (a device pow need not be exact)."""
+    return torch.tensor([alpha_max * 0.5 ** t for t in range(N_CAND)],
+                        dtype=dtype).to(device)
+
+
+def mega_chunk_armijo_plain(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB,
+                            WW, s_ring, y_ring, lr_B, lr_Bdt, lr_d):
+    """K2's loop, step by step in torch, on the kernel's layout: the same
+    inputs as the CUDA launch and the same outputs (Rt, G, vio (J,
+    n_pad), oscal); the rings are updated in place.
+
+    The sharp AL ℒ = obj + Σ(λ̃² − λ²)/(2σ), λ̃ = min(λ_ub, λ − σv), over
+    the J channel rows, the wide constraints and the low-rank equality
+    terms (megakernel.py:516-780). The Armijo step is the first candidate
+    α_max·2⁻ᵗ (t = 0..50) with ℒ(α) ≤ ℒ + c·α·⟨G, D⟩, else the last: the
+    α of the sequential backtracking loop, with every candidate evaluated
+    at once as the kernel does."""
+    k, n_w = spec.k, spec.n_wide
+    dtype, dev = Rt_in.dtype, Rt_in.device
+    host = lambda x: x.detach().to("cpu")
+    scal_h = host(scal)
+    sigma = scal[0]
+    cur_gtol = float(scal_h[1])
+    stag_tol = scal_h[2]
+    max_steps = int(scal_h[3])
+    head = int(scal_h[4])
+    rho = scal[5:5 + k].clone()
+    n_lc = len(spec.lr_cons)
+    o = 5 + k
+    lam_lc, b_lc = scal[o:o + n_lc], scal[o + n_lc:o + 2 * n_lc]
+    o += 2 * n_lc
+    lam_w, b_w = scal[o:o + n_w], scal[o + n_w:o + 2 * n_w]
+    ub_w = scal[o + 2 * n_w:o + 3 * n_w]
+    WWv = WW[:n_w]
+    sl = _lr_slices(spec)
+    cons_idx = {t: i for i, t in enumerate(spec.lr_cons)}
+    two_sigma = 2.0 * sigma
+
+    def lr_tr(Qa, Qb, t):
+        return torch.sum(Qa[:, sl[t]] * Qb[:, sl[t]] * lr_d[sl[t]])
+
+    def tilde(lam, vio, ub):
+        return torch.minimum(ub, lam - sigma * vio)
+
+    def state_of(Rt, CRt, Q):
+        obj = torch.sum(Rt * CRt)
+        for t in range(spec.n_lr):
+            if spec.lr_is_obj[t]:
+                obj = obj + lr_tr(Q, Q, t)
+        rv = torch.sum(Rt * Rt, dim=0, keepdim=True)
+        vio = W * rv - Bc
+        vio_w = WWv @ rv[0] - b_w
+        vio_lr = [lr_tr(Q, Q, t) - b_lc[i] for t, i in cons_idx.items()]
+        return obj, vio, vio_w, vio_lr
+
+    def rest_of(vio_w, vio_lr):
+        """ℒ's wide and low-rank terms (batched over leading axes)."""
+        lt = tilde(lam_w, vio_w, ub_w)
+        L = torch.sum((lt * lt - lam_w * lam_w) / two_sigma, dim=-1)
+        for i in range(n_lc):
+            lt = lam_lc[i] - sigma * vio_lr[i]
+            L = L + (lt * lt - lam_lc[i] * lam_lc[i]) / two_sigma
+        return L
+
+    def al_of(obj, vio, vio_w, vio_lr):
+        lt = tilde(LAM, vio, UB)
+        return (obj + torch.sum(lt * lt - LAM * LAM) / two_sigma
+                + rest_of(vio_w, vio_lr))
+
+    def grad_of(Rt, CRt, Q, vio, vio_w, vio_lr):
+        mu_row = torch.sum(W * -tilde(LAM, vio, UB), dim=0, keepdim=True)
+        mu_row = mu_row + (-tilde(lam_w, vio_w, ub_w)) @ WWv
+        G = 2.0 * (CRt + mu_row * Rt)
+        for t in range(spec.n_lr):
+            if spec.lr_is_obj[t]:
+                y_t = 1.0
+            else:
+                i = cons_idx[t]
+                y_t = -(lam_lc[i] - sigma * vio_lr[i])
+            G = G + 2.0 * y_t * (Q[:, sl[t]] @ lr_Bdt[sl[t]])
+        return G
+
+    Rt = Rt_in.clone()
+    CRt = Rt @ C
+    Q = Rt @ lr_B
+    obj, vio, vio_w, vio_lr = state_of(Rt, CRt, Q)
+    L_val = al_of(obj, vio, vio_w, vio_lr)
+    G = grad_of(Rt, CRt, Q, vio, vio_w, vio_lr)
+    gnorm = torch.sqrt(torch.sum(G * G)) / spec.gscale
+    steps, stag = 0, False
+    alpha = torch.zeros((), dtype=dtype, device=dev)
+    cand = armijo_steps(spec.alpha_max, dtype, dev)
+    ca = cand[:, None, None]
+
+    while float(gnorm) > cur_gtol and steps < max_steps and not stag:
+        direction = -G
+        if spec.use_hist:
+            direction = _two_loop_plain(spec, G, s_ring, y_ring, rho, head)
+            descent = float(torch.sum(direction * G))
+            if math.isnan(descent) or descent >= 0.0:
+                direction = -G
+        slope0 = torch.sum(G * direction)
+
+        # line-search products, shared by every candidate step
+        CDt = direction @ C
+        p1 = 2.0 * torch.sum(Rt * CDt)
+        p2 = torch.sum(direction * CDt)
+        rv1 = 2.0 * torch.sum(Rt * direction, dim=0, keepdim=True)
+        rv2 = torch.sum(direction * direction, dim=0, keepdim=True)
+        q1, q2 = W * rv1, W * rv2
+        q1_w, q2_w = WWv @ rv1[0], WWv @ rv2[0]
+        Qd = direction @ lr_B
+        p1_lr = [2.0 * lr_tr(Q, Qd, t) for t in range(spec.n_lr)]
+        p2_lr = [lr_tr(Qd, Qd, t) for t in range(spec.n_lr)]
+        for t in range(spec.n_lr):
+            if spec.lr_is_obj[t]:
+                p1 = p1 + p1_lr[t]
+                p2 = p2 + p2_lr[t]
+
+        # ℒ at every candidate; the first that passes the Armijo test
+        lt = tilde(LAM, vio + ca * (ca * q2 + q1), UB)
+        L_all = (obj + cand * (cand * p2 + p1)
+                 + torch.sum(lt * lt - LAM * LAM, dim=(1, 2)) / two_sigma)
+        cw = cand[:, None]
+        L_all = L_all + rest_of(
+            vio_w + cw * (cw * q2_w + q1_w),
+            [vio_lr[i] + cand * (cand * p2_lr[t] + p1_lr[t])
+             for t, i in cons_idx.items()])
+        passed = ~(L_all > L_val + ARMIJO_C * cand * slope0)
+        t_ok = int(torch.argmax(passed.to(torch.int8))) if bool(passed.any()) \
+            else N_CAND - 1
+        alpha, L_new = cand[t_ok], L_all[t_ok]
+
+        # algebraic commit + incremental products
+        vio = vio + alpha * (alpha * q2 + q1)
+        vio_w = vio_w + alpha * (alpha * q2_w + q1_w)
+        vio_lr = [vio_lr[i] + alpha * (alpha * p2_lr[t] + p1_lr[t])
+                  for t, i in cons_idx.items()]
+        obj = obj + alpha * (alpha * p2 + p1)
+        Rt = Rt + alpha * direction
+        CRt = CRt + alpha * CDt
+        Q = Q + alpha * Qd
+
+        G_new = grad_of(Rt, CRt, Q, vio, vio_w, vio_lr)
+        gnorm = torch.sqrt(torch.sum(G_new * G_new)) / spec.gscale
+        L_old_h, L_new_h = host(L_val), host(L_new)
+        rel_delta = (L_old_h - L_new_h) / torch.maximum(
+            torch.ones_like(L_new_h),
+            torch.maximum(L_new_h.abs(), L_old_h.abs()))
+        stag = bool(rel_delta < stag_tol)
+        if spec.use_hist and not stag:
+            head = _push_plain(spec, s_ring, y_ring, rho, head, alpha,
+                               direction, G, G_new)
+        G = G_new
+        L_val = L_new
+        steps += 1
+
+    oscal = torch.zeros(spec.n_scal_out, dtype=dtype, device=dev)
+    oscal[0] = L_val
+    oscal[1] = obj
+    oscal[2] = gnorm
+    oscal[3] = steps
+    oscal[4] = float(stag)
+    oscal[5] = alpha
+    oscal[6] = head
+    oscal[7:7 + k] = rho
+    o_vw = 7 + k + max(n_lc, 1)
+    for i in range(n_lc):
+        oscal[7 + k + i] = vio_lr[i]
+    oscal[o_vw:o_vw + n_w] = vio_w
     return Rt, G, vio, oscal
 
 
@@ -483,16 +800,43 @@ class _K1Args(ctypes.Structure):
     )
 
 
+class _K2Args(ctypes.Structure):
+    """Mirror of ``struct K2Args`` in csrc/megakernel_armijo.cu (field
+    order)."""
+
+    _fields_ = (
+        [(f, ctypes.c_int) for f in (
+            "n_pad", "rp", "k", "use_hist", "n_lr", "n_lc", "lrc",
+            "is_double", "J", "n_w")]
+        + [("lr_off", ctypes.c_int * (MAX_LR_TERMS + 1)),
+           ("lr_cons", ctypes.c_int * MAX_LR_TERMS),
+           ("device", ctypes.c_int),
+           ("gscale", ctypes.c_double), ("alpha_max", ctypes.c_double)]
+        + [(f, ctypes.c_void_p) for f in (
+            "scal", "C", "Rt_in", "LAM", "W", "B", "UB", "WW", "s_ring",
+            "y_ring", "lrB", "lrBdt", "lrd", "Rt_out", "G_out", "vio_out",
+            "oscal", "work", "stream")]
+        + [(f, ctypes.c_int) for f in (
+            "S", "nblk", "smem_bytes", "sms", "blocks_per_sm")]
+        + [("work_elems", ctypes.c_longlong)]
+    )
+
+
 class CudaKernel:
-    """K1's shared library, built from ``csrc/megakernel.cu`` at first use,
-    and its launch count (``launches``: one per kernel launch on the main
-    path; nothing else adds to it)."""
+    """A kernel's shared library, built from ``csrc/<source>`` at first
+    use, and its launch count (``launches``: one per kernel launch on the
+    main path; nothing else adds to it). The library exports
+    ``<prefix>_limits``, ``_plan``, ``_launch`` and ``_error_string``."""
 
-    source = "megakernel.cu"
-
-    def __init__(self):
+    def __init__(self, name: str, source: str, prefix: str, args_type,
+                 limits: tuple):
+        self.name, self.source, self.prefix = name, source, prefix
+        self.args_type, self.limits = args_type, limits
         self.launches = 0
         self._built = None
+
+    def _fn(self, lib, what: str):
+        return getattr(lib, f"{self.prefix}_{what}")
 
     @property
     def built(self):
@@ -501,49 +845,57 @@ class CudaKernel:
 
             built = build_cuda(self.source)
             lib = built.lib
-            lib.k1_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.k1_limits.restype = ctypes.c_int
-            for fn in (lib.k1_plan, lib.k1_launch):
-                fn.argtypes = [ctypes.POINTER(_K1Args)]
+            limits = self._fn(lib, "limits")
+            limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            limits.restype = ctypes.c_int
+            for what in ("plan", "launch"):
+                fn = self._fn(lib, what)
+                fn.argtypes = [ctypes.POINTER(self.args_type)]
                 fn.restype = ctypes.c_int
-            lib.k1_error_string.argtypes = [ctypes.c_int]
-            lib.k1_error_string.restype = ctypes.c_char_p
-            lim = (ctypes.c_int * 7)()
-            lib.k1_limits(lim)
-            want = (MAX_RP, 16, MAX_K, MAX_LR_TERMS, MAX_LR_COLS, N_CHUNK,
-                    ctypes.sizeof(_K1Args))
+            err = self._fn(lib, "error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            want = self.limits + (ctypes.sizeof(self.args_type),)
+            lim = (ctypes.c_int * len(want))()
+            limits(lim)
             if tuple(lim) != want:
                 raise RuntimeError(
-                    f"megakernel.cu limits {tuple(lim)} disagree with the "
+                    f"{self.source} limits {tuple(lim)} disagree with the "
                     f"wrapper's {want}")
             self._built = built
         return self._built
 
     def _check(self, rc: int, what: str):
         if rc != 0:
-            msg = self.built.lib.k1_error_string(rc).decode()
-            raise RuntimeError(f"K1 {what} failed: CUDA error {rc} ({msg})")
+            msg = self._fn(self.built.lib, "error_string")(rc).decode()
+            raise RuntimeError(
+                f"{self.name} {what} failed: CUDA error {rc} ({msg})")
 
-    def plan(self, args: _K1Args) -> _K1Args:
-        self._check(self.built.lib.k1_plan(ctypes.byref(args)), "plan")
+    def plan(self, args):
+        self._check(self._fn(self.built.lib, "plan")(ctypes.byref(args)),
+                    "plan")
         if args.blocks_per_sm * args.sms < args.nblk or args.S > 16:
             raise RuntimeError(
-                f"K1 grid of {args.nblk} blocks ({args.S} columns each) is "
-                f"not co-resident on {args.sms} SMs at {args.blocks_per_sm} "
-                f"block(s) per SM")
+                f"{self.name} grid of {args.nblk} blocks ({args.S} columns "
+                f"each) is not co-resident on {args.sms} SMs at "
+                f"{args.blocks_per_sm} block(s) per SM")
         return args
 
-    def launch(self, args: _K1Args):
+    def launch(self, args):
         self.plan(args)
-        self._check(self.built.lib.k1_launch(ctypes.byref(args)), "launch")
+        self._check(self._fn(self.built.lib, "launch")(ctypes.byref(args)),
+                    "launch")
         self.launches += 1
 
 
-K1 = CudaKernel()
+_COMMON_LIMITS = (MAX_RP, 16, MAX_K, MAX_LR_TERMS, MAX_LR_COLS, N_CHUNK)
+K1 = CudaKernel("K1", "megakernel.cu", "k1", _K1Args, _COMMON_LIMITS)
+K2 = CudaKernel("K2", "megakernel_armijo.cu", "k2", _K2Args,
+                _COMMON_LIMITS + (MAX_DIAG_CHANNELS, MAX_WIDE, N_CAND))
 
 
-def _args_for(spec: MegaSpec, dtype, device) -> _K1Args:
-    a = _K1Args()
+def _args_for(spec: MegaSpec, dtype, device, args_type=_K1Args):
+    a = args_type()
     a.n_pad, a.rp, a.k = spec.n_pad, spec.rp, spec.k
     a.use_hist = int(spec.use_hist)
     a.n_lr, a.n_lc = spec.n_lr, len(spec.lr_cons)
@@ -561,6 +913,32 @@ def _args_for(spec: MegaSpec, dtype, device) -> _K1Args:
     return a
 
 
+def _check_args(name: str, want: dict, got: dict, dtype, dev):
+    for arg, x in got.items():
+        if tuple(x.shape) != want[arg] or x.dtype != dtype \
+                or x.device != dev or not x.is_contiguous():
+            raise ValueError(
+                f"{name} argument {arg}: want contiguous {want[arg]} "
+                f"{dtype} on {dev}, got {tuple(x.shape)} {x.dtype} on "
+                f"{x.device}")
+
+
+def _check_launchable(name: str, spec: MegaSpec, dtype, dev):
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} runs in float32 or float64, got {dtype}")
+    if spec.n_pad > MAX_N_PAD or spec.n_pad % N_CHUNK or spec.rp > MAX_RP \
+            or spec.rp % 8 or spec.k > MAX_K \
+            or sum(spec.lr_sizes) > MAX_LR_COLS or spec.n_lr > MAX_LR_TERMS \
+            or spec.J > MAX_DIAG_CHANNELS or spec.n_wide > MAX_WIDE:
+        raise ValueError(f"{name} layout limits exceeded by {spec}")
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr() if x.numel() else 0)
+
+
 def mega_kernel(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
                 s_ring, y_ring, lr_B, lr_Bdt, lr_d):
     """Launch K1 on CUDA tensors: the same arguments and results as
@@ -569,13 +947,7 @@ def mega_kernel(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
     dtype, dev = Rt_in.dtype, Rt_in.device
     n, rp, k = spec.n_pad, spec.rp, spec.k
     lrc = int(sum(spec.lr_sizes))
-    if dev.type != "cuda":
-        raise ValueError("mega_kernel takes CUDA tensors")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"K1 runs in float32 or float64, got {dtype}")
-    if n > MAX_N_PAD or n % N_CHUNK or rp > MAX_RP or rp % 8 or k > MAX_K \
-            or lrc > MAX_LR_COLS or spec.n_lr > MAX_LR_TERMS:
-        raise ValueError(f"K1 layout limits exceeded by {spec}")
+    _check_launchable("K1", spec, dtype, dev)
     want = {
         "scal": (5 + k + 2 * len(spec.lr_cons),), "C": (n, n),
         "Rt_in": (rp, n), "lam_row": (1, n), "w_row": (1, n),
@@ -585,27 +957,62 @@ def mega_kernel(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
     got = dict(scal=scal, C=C, Rt_in=Rt_in, lam_row=lam_row, w_row=w_row,
                b_row=b_row, s_ring=s_ring, y_ring=y_ring, lr_B=lr_B,
                lr_Bdt=lr_Bdt, lr_d=lr_d)
-    for name, x in got.items():
-        if tuple(x.shape) != want[name] or x.dtype != dtype \
-                or x.device != dev or not x.is_contiguous():
-            raise ValueError(
-                f"K1 argument {name}: want contiguous {want[name]} {dtype} "
-                f"on {dev}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    _check_args("K1", want, got, dtype, dev)
     a = K1.plan(_args_for(spec, dtype, dev))
     Rt_out = torch.empty((rp, n), dtype=dtype, device=dev)
     G_out = torch.empty((rp, n), dtype=dtype, device=dev)
     vio_out = torch.empty((1, n), dtype=dtype, device=dev)
     oscal = torch.zeros(spec.n_scal_out, dtype=dtype, device=dev)
     work = torch.empty(int(a.work_elems), dtype=dtype, device=dev)
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr() if x.numel() else 0)
-    a.scal, a.C, a.Rt_in = ptr(scal), ptr(C), ptr(Rt_in)
-    a.lam, a.w, a.b = ptr(lam_row), ptr(w_row), ptr(b_row)
-    a.s_ring, a.y_ring = ptr(s_ring), ptr(y_ring)
-    a.lrB, a.lrBdt, a.lrd = ptr(lr_B), ptr(lr_Bdt), ptr(lr_d)
-    a.Rt_out, a.G_out, a.vio_out = ptr(Rt_out), ptr(G_out), ptr(vio_out)
-    a.oscal, a.work = ptr(oscal), ptr(work)
+    a.scal, a.C, a.Rt_in = _ptr(scal), _ptr(C), _ptr(Rt_in)
+    a.lam, a.w, a.b = _ptr(lam_row), _ptr(w_row), _ptr(b_row)
+    a.s_ring, a.y_ring = _ptr(s_ring), _ptr(y_ring)
+    a.lrB, a.lrBdt, a.lrd = _ptr(lr_B), _ptr(lr_Bdt), _ptr(lr_d)
+    a.Rt_out, a.G_out, a.vio_out = _ptr(Rt_out), _ptr(G_out), _ptr(vio_out)
+    a.oscal, a.work = _ptr(oscal), _ptr(work)
     a.stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     K1.launch(a)
+    return Rt_out, G_out, vio_out, oscal
+
+
+def mega_kernel_armijo(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB, WW,
+                       s_ring, y_ring, lr_B, lr_Bdt, lr_d):
+    """Launch K2 on CUDA tensors: the same arguments and results as
+    ``mega_chunk_armijo_plain``; ``s_ring``/``y_ring`` are updated in
+    place. The launch goes on the current stream and does not
+    synchronise."""
+    dtype, dev = Rt_in.dtype, Rt_in.device
+    n, rp, k, J, n_w = spec.n_pad, spec.rp, spec.k, spec.J, spec.n_wide
+    lrc = int(sum(spec.lr_sizes))
+    _check_launchable("K2", spec, dtype, dev)
+    want = {
+        "scal": (5 + k + 2 * len(spec.lr_cons) + 3 * n_w,), "C": (n, n),
+        "Rt_in": (rp, n), "LAM": (J, n), "W": (J, n), "Bc": (J, n),
+        "UB": (J, n), "WW": (max(n_w, 1), n), "s_ring": (k * rp, n),
+        "y_ring": (k * rp, n), "lr_B": (n, lrc), "lr_Bdt": (lrc, n),
+        "lr_d": (lrc,),
+    }
+    got = dict(scal=scal, C=C, Rt_in=Rt_in, LAM=LAM, W=W, Bc=Bc, UB=UB,
+               WW=WW, s_ring=s_ring, y_ring=y_ring, lr_B=lr_B,
+               lr_Bdt=lr_Bdt, lr_d=lr_d)
+    _check_args("K2", want, got, dtype, dev)
+    a = _args_for(spec, dtype, dev, _K2Args)
+    a.J, a.n_w = J, n_w
+    a = K2.plan(a)
+    Rt_out = torch.empty((rp, n), dtype=dtype, device=dev)
+    G_out = torch.empty((rp, n), dtype=dtype, device=dev)
+    vio_out = torch.empty((J, n), dtype=dtype, device=dev)
+    oscal = torch.zeros(spec.n_scal_out, dtype=dtype, device=dev)
+    work = torch.empty(int(a.work_elems), dtype=dtype, device=dev)
+    a.scal, a.C, a.Rt_in = _ptr(scal), _ptr(C), _ptr(Rt_in)
+    a.LAM, a.W, a.B, a.UB, a.WW = _ptr(LAM), _ptr(W), _ptr(Bc), _ptr(UB), \
+        _ptr(WW)
+    a.s_ring, a.y_ring = _ptr(s_ring), _ptr(y_ring)
+    a.lrB, a.lrBdt, a.lrd = _ptr(lr_B), _ptr(lr_Bdt), _ptr(lr_d)
+    a.Rt_out, a.G_out, a.vio_out = _ptr(Rt_out), _ptr(G_out), _ptr(vio_out)
+    a.oscal, a.work = _ptr(oscal), _ptr(work)
+    a.stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    K2.launch(a)
     return Rt_out, G_out, vio_out, oscal
 
 
@@ -613,20 +1020,22 @@ def _lr_cons_gids(spec: MegaSpec):
     return [g for t, g in enumerate(spec.lr_gids) if not spec.lr_is_obj[t]]
 
 
-def mega_inputs(spec: MegaSpec, r: int, data: MegaData, R, lbfgs, lam,
-                sigma, cur_gtol, stag_tol, max_steps) -> tuple:
+def mega_inputs(spec: MegaSpec, r: int, data, R, lbfgs, lam, sigma,
+                cur_gtol, stag_tol, max_steps) -> tuple:
     """The kernel's arguments from the inner-loop state (the transposes
-    and rank padding of megakernel.py:1204-1216): (scal, C, Rt, lam_row,
-    w_row, b_row, s_ring, y_ring, lr_B, lr_Bdt, lr_d). ``scal`` is built
-    on the device, so a launch needs no host sync."""
+    and rank padding of megakernel.py:1204-1216 and :1107-1138). K1:
+    (scal, C, Rt, lam_row, w_row, b_row, s_ring, y_ring, lr_B, lr_Bdt,
+    lr_d); K2: (scal, C, Rt, LAM, W, B, UB, WW, s_ring, y_ring, lr_B,
+    lr_Bdt, lr_d). ``scal`` is built on the device, so a launch needs no
+    host sync."""
     dtype, dev = R.dtype, R.device
     n_pad, rp, kk = spec.n_pad, spec.rp, spec.k
     f = lambda x: torch.as_tensor(x, dtype=dtype).to(dev).reshape(1)
+    none = torch.zeros(0, dtype=dtype, device=dev)
 
     Rt = torch.zeros((rp, n_pad), dtype=dtype, device=dev)
     Rt[:r] = R.T
     lam_ext = torch.cat([lam, torch.zeros(1, dtype=dtype, device=dev)])
-    lam_row = lam_ext[data.cid_dev].reshape(1, n_pad)
 
     # (k, n_pad, r) -> (k*rp, n_pad): transposed + rank-padded
     def to_kern(h):
@@ -635,36 +1044,58 @@ def mega_inputs(spec: MegaSpec, r: int, data: MegaData, R, lbfgs, lam,
         return ht.reshape(kk * rp, n_pad)
 
     gids = _lr_cons_gids(spec)
-    scal = torch.cat([
+    scal = [
         f(sigma), f(cur_gtol), f(stag_tol), f(float(max_steps)),
         f(float(lbfgs.head)), lbfgs.rho.to(dtype),
-        lam[gids] if gids else torch.zeros(0, dtype=dtype, device=dev),
-        data.b_lr,
-    ])
-    return (scal, data.C, Rt, lam_row, data.w_row, data.b_row,
-            to_kern(lbfgs.s_hist), to_kern(lbfgs.y_hist), data.lr_B,
-            data.lr_Bdt, data.lr_d)
+        lam[gids] if gids else none, data.b_lr,
+    ]
+    rings = (to_kern(lbfgs.s_hist), to_kern(lbfgs.y_hist))
+    lr = (data.lr_B, data.lr_Bdt, data.lr_d)
+    if not spec.armijo:
+        lam_row = lam_ext[data.cid_dev].reshape(1, n_pad)
+        return (torch.cat(scal), data.C, Rt, lam_row, data.w_row,
+                data.b_row) + rings + lr
+    wg = list(spec.wide_gids)
+    scal += [lam[wg] if wg else none, data.b_wide, data.ub_wide]
+    LAM = lam_ext[data.cid_ch.reshape(-1)].reshape(spec.J, n_pad)
+    return (torch.cat(scal), data.C, Rt, LAM, data.W_ch, data.B_ch,
+            data.UB_ch, data.WW) + rings + lr
 
 
-def mega_carry(spec: MegaSpec, r: int, m: int, pscale: float,
-               data: MegaData, lam, sigma, s_ring, y_ring, outputs):
+def rings_of(spec: MegaSpec, args: tuple):
+    """(s_ring, y_ring) among ``mega_inputs``' arguments."""
+    return args[8:10] if spec.armijo else args[6:8]
+
+
+def mega_carry(spec: MegaSpec, r: int, m: int, pscale: float, data, lam,
+               sigma, s_ring, y_ring, outputs):
     """(InnerCarry, vio_norm) from the kernel's outputs (Rt, G, vio,
-    oscal) and its rings — the unpacking of megakernel.py:1240-1269."""
+    oscal) and its rings — the unpacking of megakernel.py:1240-1269 (K1)
+    and :1146-1181 (K2)."""
     from ..solver.inner import InnerCarry
     from ..solver.lbfgs import LBFGSState
 
     Rt_o, G_o, vio_o, osc = outputs
     dtype, dev = Rt_o.dtype, Rt_o.device
     n_pad, rp, kk = spec.n_pad, spec.rp, spec.k
+    o_vlr = 7 + kk
 
     def from_kern(h2):
         return h2.reshape(kk, rp, n_pad)[:, :r].transpose(1, 2).contiguous()
 
     osc_h = osc.detach().to("cpu")
     vio_raw = torch.zeros(m + 1, dtype=dtype, device=dev)
-    vio_raw[data.cid_dev] = vio_o[0]
+    if spec.armijo:
+        # channel violations to the m-vector; padding and wide slots
+        # write slot m, which the assignments below overwrite
+        vio_raw[data.cid_ch.reshape(-1)] = vio_o.reshape(-1)
+        o_vw = o_vlr + max(len(spec.lr_cons), 1)
+        for i, g in enumerate(spec.wide_gids):
+            vio_raw[g] = osc[o_vw + i]
+    else:
+        vio_raw[data.cid_dev] = vio_o[0]
     for i, g in enumerate(_lr_cons_gids(spec)):
-        vio_raw[g] = osc[7 + kk + i]
+        vio_raw[g] = osc[o_vlr + i]
     vio_raw[m] = osc[1]
     lam_t = torch.minimum(data.lam_ub, lam - sigma * vio_raw[:m])
     y_full = torch.cat([-lam_t, torch.ones(1, dtype=dtype, device=dev)])
@@ -683,15 +1114,19 @@ def mega_carry(spec: MegaSpec, r: int, m: int, pscale: float,
     return carry, torch.linalg.norm(vio) / pscale
 
 
-def mega_chunk(spec: MegaSpec, r: int, m: int, pscale: float, data: MegaData,
-               R, lbfgs, lam, sigma, cur_gtol, stag_tol, max_steps):
-    """One inner activation through K1 — the ``mega_chunk_traced``
-    contract (megakernel.py:1184-1269): returns (InnerCarry, vio_norm).
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+def mega_chunk(spec: MegaSpec, r: int, m: int, pscale: float, data, R,
+               lbfgs, lam, sigma, cur_gtol, stag_tol, max_steps):
+    """One inner activation through K1, or K2 when ``spec.armijo`` — the
+    ``mega_chunk_traced`` contract (megakernel.py:1184-1269): returns
+    (InnerCarry, vio_norm). CUDA tensors launch the kernel; CPU tensors
+    run its plain version."""
     args = mega_inputs(spec, r, data, R, lbfgs, lam, sigma, cur_gtol,
                        stag_tol, max_steps)
-    run = mega_kernel if R.device.type == "cuda" else mega_chunk_plain
+    if spec.armijo:
+        run = mega_kernel_armijo if R.device.type == "cuda" \
+            else mega_chunk_armijo_plain
+    else:
+        run = mega_kernel if R.device.type == "cuda" else mega_chunk_plain
     outputs = run(spec, *args)
-    return mega_carry(spec, r, m, pscale, data, lam, sigma, args[6],
-                      args[7], outputs)
-
+    return mega_carry(spec, r, m, pscale, data, lam, sigma,
+                      *rings_of(spec, args), outputs)

@@ -2,10 +2,11 @@
 
 Counterpart of the JAX package's ``ops/spmm.py::spmm_C`` on one device:
 one row gather ``X[ell_cols]``, a contraction over the ELL width, and the
-tier-2 rows index-added into their target rows. In this slice only the
-dense engine runs an inner loop; it calls ``spmm_C`` once per strict
-boundary (the projected feasible objective and the least-squares dual
-multiplier), exactly where the JAX package does.
+tier-2 rows index-added into their target rows. The fast-diagonal engine
+calls it once per inner iteration (CD = C@D) and at every re-sync; the
+dense engine once per strict boundary (the projected feasible objective
+and the least-squares dual multiplier), exactly where the JAX package
+does.
 """
 
 from __future__ import annotations

@@ -12,15 +12,19 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.adjoint import gradient
+from ..ops.adjoint import gradient, gradient_cx
 from ..ops.device import DeviceProblem
-from ..ops.forward import A_uu
+from ..ops.forward import A_uu, A_uu_cx
+from ..ops.spmm import spmm_C
 
 
 def al_value(dp: DeviceProblem, R, lam, sigma):
     """Returns (L, vio_raw) where vio_raw is length m+1 with slot m = obj."""
+    return _al_from_values(dp, A_uu(dp, R), lam, sigma)
+
+
+def _al_from_values(dp: DeviceProblem, av, lam, sigma):
     m = dp.m
-    av = A_uu(dp, R)
     obj = av[m]
     v = av[:m] - dp.b
     lam_t = torch.minimum(dp.lam_ub, lam - sigma * v)
@@ -54,3 +58,17 @@ def al_value_grad(dp: DeviceProblem, R, lam, sigma,
     G, y_full = gradient(dp, R, lam, sigma, vio_raw)
     grad_norm, vio_norm = norms(dp, G, vio_raw, gtol_relative, ptol_relative)
     return L, vio_raw, G, y_full, grad_norm, vio_norm
+
+
+def al_value_grad_cx(dp: DeviceProblem, R, lam, sigma,
+                     gtol_relative: bool, ptol_relative: bool):
+    """fg! on the fast-diagonal engine: ONE SpMM (CX = C_sparse @ R) serves
+    the objective, the constraints and the gradient.
+
+    Returns (L, vio_raw, G, y_full, grad_norm, vio_norm, CX); CX seeds the
+    carried recurrence of the inner loop (solver/inner.py)."""
+    CX = spmm_C(dp, R)
+    L, vio_raw = _al_from_values(dp, A_uu_cx(dp, R, CX), lam, sigma)
+    G, y_full = gradient_cx(dp, R, CX, lam, sigma, vio_raw)
+    grad_norm, vio_norm = norms(dp, G, vio_raw, gtol_relative, ptol_relative)
+    return L, vio_raw, G, y_full, grad_norm, vio_norm, CX

@@ -1,10 +1,14 @@
 """Line searches along a descent direction D for the augmented Lagrangian.
 
-Counterpart of the JAX package's ``solver/linesearch.py``. The exact
-quartic line search (reference: src/linesearch.jl:4-127) is ported; the
-Armijo backtracking for inequality problems is ROADMAP slice C.
+Counterpart of the JAX package's ``solver/linesearch.py``:
+  * the exact quartic line search for equality-only problems
+    (reference: src/linesearch.jl:4-127);
+  * Armijo backtracking for inequality problems (reference:
+    src/linesearch.jl:139-191): the sharp AL is piecewise quadratic in α,
+    each candidate is evaluated in O(m) from the same two operator
+    products, and α is halved up to 50 times.
 
-The step is committed algebraically, without re-evaluating 𝒜:
+Both commit the step algebraically, without re-evaluating 𝒜:
     vio_raw += α(α·A_DD + A_RD)   (reference: src/linesearch.jl:114-126)
 """
 
@@ -44,10 +48,41 @@ def exact_from_products(dp: DeviceProblem, A_RD, A_DD, vio_raw, lam, sigma,
     return alpha, f_star, vio_raw + alpha * (alpha * A_DD + A_RD)
 
 
-def armijo_linesearch(*args, **kwargs):
-    raise NotImplementedError(
-        "the Armijo line search (inequality families) is ROADMAP slice C"
-    )
+ARMIJO_C = 1e-4
+ARMIJO_MAX_HALVINGS = 50
 
 
-armijo_from_products = armijo_linesearch
+def armijo_linesearch(dp: DeviceProblem, R, D, vio_raw, lam, sigma, y_full,
+                      alpha_max=1.0):
+    """Armijo backtracking for the sharp AL with inequalities. ``y_full``
+    is the y of the preceding gradient (y[i] = -min(λ_ub, λ - σv)), used
+    for the slope at 0 (reference: src/linesearch.jl:169-171).
+    Returns (alpha, L_at_alpha, new_vio_raw)."""
+    A_RD, A_DD = A_linesearch(dp, R, D)
+    return armijo_from_products(dp, A_RD, A_DD, vio_raw, lam, sigma, y_full,
+                                alpha_max)
+
+
+def armijo_from_products(dp: DeviceProblem, A_RD, A_DD, vio_raw, lam, sigma,
+                         y_full, alpha_max=1.0):
+    """Armijo backtracking from precomputed operator products: the first
+    of α_max, α_max/2, … (at most 50 halvings) with
+    L(α) ≤ L(0) + c·α·slope, c = 1e-4, slope = A_RD[m] + y[:m]·A_RD[:m]."""
+    m = dp.m
+
+    def eval_AL(alpha):
+        L = vio_raw[m] + alpha * A_RD[m] + alpha * alpha * A_DD[m]
+        g = vio_raw[:m] + alpha * A_RD[:m] + alpha * alpha * A_DD[:m]
+        lam_t = torch.minimum(dp.lam_ub, lam - sigma * g)
+        return L + torch.sum(lam_t * lam_t - lam * lam) / (2.0 * sigma)
+
+    L0 = eval_AL(torch.zeros_like(vio_raw[m]))
+    slope = A_RD[m] + torch.dot(y_full[:m], A_RD[:m])
+    alpha = torch.full_like(vio_raw[m], alpha_max)
+    L_a = eval_AL(alpha)
+    k = 0
+    while k < ARMIJO_MAX_HALVINGS and bool(L_a > L0 + ARMIJO_C * alpha * slope):
+        alpha = alpha / 2.0
+        L_a = eval_AL(alpha)
+        k += 1
+    return alpha, L_a, vio_raw + alpha * (alpha * A_DD + A_RD)

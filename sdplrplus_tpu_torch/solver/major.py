@@ -6,15 +6,18 @@ state machine into one ``lax.while_loop``; here it is a Python loop with
 the same exits and the same two-way body, since PyTorch runs eagerly:
 
   * inner L-BFGS steps: one ``inner_step`` of the torch loop per body
-    iteration, or one launch of the CUDA megakernel
-    (ops/megakernel.mega_chunk) that runs a whole inner activation;
+    iteration (on the fast-diagonal engine with the carried CX = C@R), or
+    one launch of a CUDA megakernel (ops/megakernel.mega_chunk: K1 for
+    equality problems, K2 for the inequality families) that runs a whole
+    inner activation;
   * the feasibility branch: vio ≤ cur_ptol → at strict boundaries the
     Lanczos dual bound (least-squares and AL multipliers alternating),
     best-λ/gap tracking, dual ascent and tolerance tightening
     (reference: src/sdplr.jl:310-364);
   * the infeasible branch: σ·=σfac, tolerance reset (src/sdplr.jl:365-370);
   * the rank-doubling counter, which exits to the caller;
-  * L-BFGS clear + fg! re-sync at the boundary (src/sdplr.jl:389).
+  * L-BFGS clear + fg! re-sync at the boundary (src/sdplr.jl:389), which
+    on the fast-diagonal engine also refreshes the carried CX exactly.
 
 Scalars that the JAX carry holds as device values of the solve's dtype
 (σ, tolerances, dual values) stay 0-dim tensors here, so float32 solves
@@ -28,7 +31,7 @@ import math
 
 import torch
 
-from ..ops.device import DeviceProblem
+from ..ops.device import DeviceProblem, fast_diag_eligible
 from ..ops.lanczos import (
     lanczos_alpha_beta_impl,
     lanczos_alpha_beta_reorth_impl,
@@ -36,7 +39,7 @@ from ..ops.lanczos import (
     tridiag_min_eig_device,
     tridiag_min_eig_device_certified,
 )
-from .al import al_value_grad, capped_vio
+from .al import al_value_grad, al_value_grad_cx, capped_vio
 from .inner import InnerCarry, inner_step
 from .lbfgs import lbfgs_clear
 
@@ -81,7 +84,7 @@ def major_chunk(
     sigmafac,
     trace_bound,
     rankupd_tol: int,
-    mega_data=None,       # ops/megakernel.MegaData when mega_spec is set
+    mega_data=None,       # ops/megakernel.MegaData(A) when mega_spec is set
     *,
     k: int,
     use_armijo: bool,
@@ -103,9 +106,6 @@ def major_chunk(
     if blk_b > 0:
         raise NotImplementedError(
             "the block-Lanczos dual bound is ROADMAP slice B")
-    if use_armijo and mega_spec is None:
-        raise NotImplementedError(
-            "the Armijo inner loop (inequality families) is ROADMAP slice C")
     dtype, dev = carry.ic.R.dtype, carry.ic.R.device
     m = dp.m
     f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
@@ -114,6 +114,9 @@ def major_chunk(
     pscale = dp.normb if ptol_relative else 1.0
     logn = math.log(max(dp.n, 2))
     sigma_cap = f(2.0) ** 100
+    # fast-diagonal engine (solver/inner.py use_cx): only for the torch
+    # inner_step engine; the megakernels carry CX = None
+    use_cx = mega_spec is None and fast_diag_eligible(dp)
 
     def healthy(c: MajorCarry) -> bool:
         # stop on a numerically failed state (NaN L or σ overflow) instead
@@ -141,7 +144,7 @@ def major_chunk(
             ic2 = inner_step(dp, c.ic, c.lam, c.sigma, stag_tol, k=k,
                              use_armijo=use_armijo,
                              gtol_relative=gtol_relative,
-                             lbfgs_compact=lbfgs_compact)
+                             lbfgs_compact=lbfgs_compact, use_cx=use_cx)
             return dataclasses.replace(c, ic=ic2)
 
     def bound_for(c: MajorCarry, y_head):
@@ -179,7 +182,8 @@ def major_chunk(
             return d_al, p_al, y_al
         from .dualbound import ls_dual_head
 
-        y = (ls_dual_head(dp, c.ic.R, None, y_fallback=y_al)
+        CR = c.ic.CX if use_cx else None
+        y = (ls_dual_head(dp, c.ic.R, CR, y_fallback=y_al)
              if c.feas_count % 2 == 0 else y_al)
         d, p = bound_for(c, y)
         return d, p, y
@@ -277,14 +281,15 @@ def major_chunk(
         )
         if c.converged or c.rank_double:
             return c
-        # L-BFGS clear + fg! re-sync (src/sdplr.jl:383,389)
-        L, vio_raw, G, y_full, gnorm, _ = al_value_grad(
-            dp, c.ic.R, c.lam, c.sigma, gtol_relative=gtol_relative,
-            ptol_relative=ptol_relative)
+        # L-BFGS clear + fg! re-sync (src/sdplr.jl:383,389); on the
+        # fast-diagonal engine this also refreshes the carried CX from
+        # scratch, bounding its drift to one major iteration
+        L, vio_raw, G, y_full, gnorm, CX = _fg(
+            dp, c.ic.R, c.lam, c.sigma, use_cx, gtol_relative, ptol_relative)
         ic2 = InnerCarry(R=c.ic.R, G=G, y_full=y_full, vio_raw=vio_raw,
                          L_val=L, grad_norm=gnorm,
                          lbfgs=lbfgs_clear(c.ic.lbfgs), steps=c.ic.steps,
-                         stagnated=False)
+                         stagnated=False, CX=CX)
         return dataclasses.replace(c, ic=ic2)
 
     while cond(carry):
@@ -294,17 +299,37 @@ def major_chunk(
     return carry, _vio_norm(dp, carry.ic.vio_raw, pscale)
 
 
-def init_major_carry(dp: DeviceProblem, R, lam, sigma, cur_ptol, cur_gtol,
-                     generator: torch.Generator, lbfgs, rankupd_tol: int, *,
-                     gtol_relative: bool, ptol_relative: bool) -> MajorCarry:
-    """Build the initial carry from host state (fresh or after rank
-    doubling). Runs one fg! to populate (L, vio, G)."""
-    dtype, dev = R.dtype, R.device
+def _fg(dp: DeviceProblem, R, lam, sigma, with_cx: bool,
+        gtol_relative: bool, ptol_relative: bool):
+    """fg!: (L, vio_raw, G, y_full, grad_norm, CX); CX = C@R on the
+    fast-diagonal engine, else None."""
+    if with_cx:
+        L, vio_raw, G, y_full, gnorm, _, CX = al_value_grad_cx(
+            dp, R, lam, sigma, gtol_relative, ptol_relative)
+        return L, vio_raw, G, y_full, gnorm, CX
     L, vio_raw, G, y_full, gnorm, _ = al_value_grad(
         dp, R, lam, sigma, gtol_relative=gtol_relative,
         ptol_relative=ptol_relative)
+    return L, vio_raw, G, y_full, gnorm, None
+
+
+def init_major_carry(dp: DeviceProblem, R, lam, sigma, cur_ptol, cur_gtol,
+                     generator: torch.Generator, lbfgs, rankupd_tol: int, *,
+                     gtol_relative: bool, ptol_relative: bool,
+                     with_cx: bool | None = None) -> MajorCarry:
+    """Build the initial carry from host state (fresh or after rank
+    doubling). Runs one fg! to populate (L, vio, G). ``with_cx`` must
+    match the engine of the major_chunk this carry feeds (True iff the
+    torch inner loop runs on a fast-diagonal problem); None decides as
+    for a major_chunk without a megakernel."""
+    dtype, dev = R.dtype, R.device
+    if with_cx is None:
+        with_cx = fast_diag_eligible(dp)
+    L, vio_raw, G, y_full, gnorm, CX = _fg(
+        dp, R, lam, sigma, with_cx, gtol_relative, ptol_relative)
     ic = InnerCarry(R=R, G=G, y_full=y_full, vio_raw=vio_raw, L_val=L,
-                    grad_norm=gnorm, lbfgs=lbfgs, steps=0, stagnated=False)
+                    grad_norm=gnorm, lbfgs=lbfgs, steps=0, stagnated=False,
+                    CX=CX)
     f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
     return MajorCarry(
         ic=ic, lam=lam, sigma=f(sigma), cur_ptol=f(cur_ptol),

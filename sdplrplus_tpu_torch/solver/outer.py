@@ -8,10 +8,13 @@ boundary it crosses; the host checks wall-clock limits, prints, and
 re-specializes shapes on rank doubling. After the solve come the host
 f64 dual polish and the reseed ladder.
 
-This slice of the port runs the dense engine (C held dense, every sparse
-constraint one diagonal entry): MaxCut, MinBisection and CutNorm at
-n_pad ≤ 2048. Other engines and options raise NotImplementedError naming
-the ROADMAP slice that ports them.
+The port runs problems whose sparse constraints are all diagonal: the
+dense engine (C held dense: MaxCut, MinBisection, CutNorm at n_pad ≤
+2048) and the fast-diagonal engine (C kept sparse, e.g. μ-conductance,
+whose wide volume constraint keeps C out of dense mode), with equality
+constraints (exact line search) or inequalities (Armijo). Other engines
+and options raise NotImplementedError naming the ROADMAP slice that
+ports them.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from ..compile import compile_problem
 from ..config import SolverConfig, resolve_device, resolve_dtype
-from ..ops.device import DeviceProblem, to_device
+from ..ops.device import DeviceProblem, fast_diag_eligible, to_device
 from ..problem import SDPProblem
 from ..utils.printing import print_heading, print_intermediate
 from .dualbound import dimacs_errors, dual_obj
@@ -34,9 +37,10 @@ from .rank import next_rank
 
 _EPS64 = float(np.finfo(np.float64).eps)
 
-ENGINE_KERNEL = "cuda-megakernel"     # K1 on the card
-ENGINE_PLAIN = "megakernel-plain"     # K1's plain version (CPU tensors)
-ENGINE_TORCH = "dense-torch"          # the torch inner loop
+ENGINE_KERNEL = "cuda-megakernel"     # K1 or K2 on the card
+ENGINE_PLAIN = "megakernel-plain"     # their plain versions (CPU tensors)
+ENGINE_TORCH = "dense-torch"          # the torch inner loop, dense C
+ENGINE_FAST = "fast-diag-torch"       # the torch inner loop, sparse C
 
 
 def _init_vars(prob, dp, r: int, config: SolverConfig, dtype,
@@ -137,7 +141,7 @@ def _engine_name(dp, use_mega: bool) -> str:
     """Which inner-loop engine served this solve (result provenance)."""
     if use_mega:
         return ENGINE_KERNEL if dp.device.type == "cuda" else ENGINE_PLAIN
-    return ENGINE_TORCH
+    return ENGINE_FAST if fast_diag_eligible(dp) else ENGINE_TORCH
 
 
 def _final_gap(obj: float, max_dual: float, have_dual) -> float:
@@ -187,11 +191,9 @@ def solve(prob: SDPProblem, r: int, config: SolverConfig) -> dict:
                          entry=config.entry_mode)
     if cp.ew_c2 is not None:
         _not_ported("the Lovász-θ entry-mask engine", "slice D")
-    if cp.C_dense is None:
-        _not_ported("the ELL engines (fast-diagonal: slice B; general: "
-                    "slice E)", "slices B and E")
-    if cp.has_inequalities:
-        _not_ported("the Armijo inner loop (inequality families)", "slice C")
+    if cp.C_dense is None and not cp.all_cons_diagonal:
+        _not_ported("the general gather engine (off-diagonal constraint "
+                    "entries)", "slice E")
     dp = to_device(cp, dtype, device)
     preprocess_time = time.time() - t_pre
 
@@ -324,18 +326,21 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
     stag_tol = _stagnation_tol(config, dtype)
     sigma0 = float(config.sigma0)
 
-    # the inner engine (outer.py:607-615, :1137-1149): 'auto' takes K1 on
-    # CUDA when eligible; 'mega' takes K1 on CUDA and its plain version
-    # on the CPU; 'xla' takes the torch inner loop
+    # the inner engine (outer.py:607-615, :1137-1149): 'auto' takes a
+    # megakernel (K1 for equality problems, K2 for inequalities) on CUDA
+    # when eligible; 'mega' takes it on CUDA and its plain version on the
+    # CPU; 'xla' takes the torch inner loop
     mega_meta = mega_data = None
     if config.inner_impl in ("auto", "mega"):
         eligible = megakernel_eligible(dp, r, k, use_armijo, dtype)
         if config.inner_impl == "mega" and not eligible:
             raise ValueError(
                 "inner_impl='mega' requested but the problem is not "
-                "megakernel-eligible (needs dense C, equality constraints "
-                "only, one diagonal entry per constraint, and the layout "
-                "limits of ops/megakernel.py)")
+                "megakernel-eligible (needs every constraint entry on the "
+                "diagonal with one entry per narrow constraint; K1 also "
+                "needs dense C and equality constraints only, K2 at most "
+                "4 channels per row and 2 wide constraints; plus the "
+                "layout limits of ops/megakernel.py)")
         if config.inner_impl == "auto" and dp.device.type != "cuda":
             eligible = False
         if eligible:
@@ -355,12 +360,18 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
         return {"mega_spec": mega_spec_for(mega_meta, r_now),
                 "mega_r": r_now}
 
+    def cx_for(r_now: int) -> bool:
+        # the carry holds CX exactly when major_chunk runs the torch inner
+        # loop on a fast-diagonal problem (solver/major.py use_cx)
+        return not mega_kwargs(r_now) and fast_diag_eligible(dp)
+
     def fresh_carry(R, lam):
         return init_major_carry(
             dp, R, lam, sigma0, max(1.0 / sigma0 ** 0.1, config.ptol),
             max(1.0 / sigma0, _gtol_floor(config, dtype)), gen,
             lbfgs_init(k, dp.n_pad, r, dtype, dp.device), config.rankupd_tol,
-            gtol_relative=gtol_rel, ptol_relative=ptol_rel)
+            gtol_relative=gtol_rel, ptol_relative=ptol_rel,
+            with_cx=cx_for(r))
 
     carry = fresh_carry(R, lam)
     base_total = 0   # inner steps before the current carry lifetime
@@ -506,7 +517,8 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
                     float(carry.cur_ptol), float(carry.cur_gtol), gen,
                     lbfgs_init(k, dp.n_pad, r, dtype, dp.device),
                     config.rankupd_tol,
-                    gtol_relative=gtol_rel, ptol_relative=ptol_rel)
+                    gtol_relative=gtol_rel, ptol_relative=ptol_rel,
+                    with_cx=cx_for(r))
                 # dual values and the gap history stay valid across ranks
                 carry = dataclasses.replace(
                     newc, best_lam=carry.best_lam, max_dual=carry.max_dual,
@@ -547,15 +559,20 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
         feas = 1
         extra_dual_passes = 1024
 
-    # dual-time attribution from the measured operator-pass count: every
-    # engine of this slice is matmul-bound, so an inner iteration costs
-    # ~3·r units and a Krylov pass one (outer.py:1013-1049)
+    # dual-time attribution from the measured operator-pass count
+    # (outer.py:1013-1049): on the gather-bound fast-diagonal engine an
+    # inner iteration is one SpMM, as is a Krylov pass; on the
+    # matmul-bound engines (dense, megakernels) an inner iteration costs
+    # ~3·r units and a Krylov pass one
     dual_time = 0.0
     total_steps = base_total + carry.ic.steps
     dual_passes = carry.dual_passes + extra_dual_passes
     if dual_passes > 0 and total_steps > 0:
         dual_units = float(dual_passes)
-        primal_units = 3.0 * float(max(r, 1)) * float(total_steps)
+        if _engine_name(dp, bool(mega_kwargs(r))) == ENGINE_FAST:
+            primal_units = float(total_steps)
+        else:
+            primal_units = 3.0 * float(max(r, 1)) * float(total_steps)
         frac = dual_units / max(dual_units + primal_units, 1e-30)
         dual_time = min(max(frac * totaltime, 0.0), totaltime)
 

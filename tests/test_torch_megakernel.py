@@ -182,9 +182,13 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
 
 @pytest.mark.parametrize("problem", sorted(FAMILIES))
 def test_eligibility_and_layout_limits(problem):
-    _, dp_t, _, _ = _setup(problem)
+    from sdplrplus_tpu.ops.megakernel import megakernel_eligible
+
+    dp_j, dp_t, _, _ = _setup(problem)
     assert mk.megakernel_eligible(dp_t, 3, 4, False, torch.float32)
-    assert not mk.megakernel_eligible(dp_t, 3, 4, True, torch.float32)
+    # an Armijo request routes to K2, as in the JAX package
+    assert mk.megakernel_eligible(dp_t, 3, 4, True, torch.float32) \
+        == megakernel_eligible(dp_j, 3, 4, True, jnp.float32)
     assert not mk.megakernel_eligible(dp_t, 3, 4, False, torch.bfloat16)
     assert not mk.megakernel_eligible(dp_t, mk.MAX_RP + 1, 4, False,
                                       torch.float32)

@@ -30,7 +30,8 @@ def _jax_config_module():
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = (
         "import sys, sdplrplus_tpu_torch, sdplrplus_tpu_torch.convert, "
-        "sdplrplus_tpu_torch.ops.megakernel, sdplrplus_tpu_torch.solver.outer\n"
+        "sdplrplus_tpu_torch.ops.megakernel, sdplrplus_tpu_torch.solver.outer, "
+        "sdplrplus_tpu_torch.solver.major\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'sdplrplus_tpu' "
         "or m.startswith('sdplrplus_tpu.'))\n"
@@ -53,6 +54,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     sources += [os.path.join(ROOT, "chip_smoke.py"),
                 os.path.join(ROOT, "tests", "test_torch_cuda.py")]
     assert any(s.endswith("megakernel.cu") for s in sources)
+    assert any(s.endswith("megakernel_armijo.cu") for s in sources)
     for path in sources:
         with open(path) as f:
             for i, line in enumerate(f, 1):
@@ -120,3 +122,14 @@ def test_unported_options_name_their_slice():
                {"profile_dir": "x"}, {"devices": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sdplr(C, As, b, 1, printlevel=0, device="cpu", **kw)
+
+
+def test_off_diagonal_constraints_name_the_general_engine_slice():
+    """Lovász θ without the entry-mask engine has off-diagonal constraint
+    entries: the general gather engine is not ported yet."""
+    from sdplrplus_tpu_torch import sdplr
+    from sdplrplus_tpu_torch.models import lovasz_theta, make_random_graph
+
+    C, As, b = lovasz_theta(make_random_graph(12, 0.5, seed=1))
+    with pytest.raises(NotImplementedError, match="slice E"):
+        sdplr(C, As, b, 2, printlevel=0, device="cpu", entry_mode=False)
