@@ -9,9 +9,10 @@ from the sources in the checkout and runs these phases, one line each:
 
   1. device   the card, its compute capability (must be 9.0), its name
               and power limit as nvidia-smi reports them, the TF32 flags;
-  2. build    nvcc of csrc/megakernel.cu (K1) and csrc/megakernel_armijo.cu
-              (K2), both started together, in seconds, and what ptxas
-              reports of their registers and spills;
+  2. build    nvcc of csrc/megakernel.cu (K1), csrc/megakernel_armijo.cu
+              (K2) and csrc/gather.cu (the gather kernels), all started
+              together, in seconds, and what ptxas reports of their
+              registers and spills;
   3. K1       the inner-loop megakernel against its plain PyTorch version
               on the same inputs on the card: float32 and float64, 1 and
               25 steps, the gtol exit and the ring round trip, on a
@@ -44,7 +45,37 @@ from the sources in the checkout and runs these phases, one line each:
               box and ⟨D, X⟩ = 1 to ptol, and land within 1e-2 of the JAX
               package's objective;
   8. times2   as 5 for K2 on the μ-conductance G1 state, with the torch
-              Armijo inner loop (fast-diagonal engine) beside it.
+              Armijo inner loop (fast-diagonal engine) beside it;
+  9. gather   the three gather kernels of csrc/gather.cu against their
+              plain versions, which must agree exactly (max |Δ| = 0):
+              gather_rows at the SYN20K path's shapes (its tier-1 and
+              tier-2 ELL column ids, X (20096, r) for r = 10 and 20, float32
+              and float64, int64 and int32 ids) and at the probes' shapes (1
+              and 8 rows per index); gather_window at span/bucket (128, 512)
+              and (1024, 512); gather_lanes on (8, 128) and (32, 1024) tiles
+              and the (8·512, 1024) grid; then the probe entry points
+              (sdplrplus_tpu_torch/probes.py) at the probes' shapes, with the
+              launch counts set to 0 before and read after;
+ 10. syn20k   MaxCut at n = 20,000: sdplr(...) on SYN20K
+              (synthetic_graph(20000, 16), 319,699 edges) in float32 with
+              every launch count set to 0 just before and read just after;
+              it must run the fast-diag-torch engine with no K1 or K2 launch
+              and gather_rows launches, take the block-Lanczos bound and no
+              scalar one, reach pinfeas and gap ≤ 1e-2, land within 1e-2 of
+              the JAX package's objective, and not over-certify: its gap
+              must be at least the float64 gap at its own multiplier
+              (λ_min by scipy's eigsh on the host) less 2e-3;
+ 11. times3   CUDA-event times in turns (plain, kernel, library, library,
+              kernel, plain): gather_rows per SpMM (tier 1 and tier 2) at
+              the SYN20K shapes for r = 10 and 20 beside its bound, its plain
+              version and torch.index_select; the three kernels at the
+              probes' shapes (N = 100,000, T = 2¹⁹, r = 16 and 32) with
+              torch.index_select and torch.gather as library calls, each
+              also timed per call from the host (launch cost included);
+              the SYN20K inner loop and the warm μ-conductance solve with
+              the SpMM's gather through the kernel and through X[idx], in
+              turns; and the SYN20K solve's seconds, iterations, rank, dual
+              bounds, block passes and gather launches.
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -80,6 +111,21 @@ JAX_G1_OBJ = -11819.0537109375
 JAX_MUCOND_G1_OBJ = 0.7231850028038025
 MU = 0.1
 
+# sdplrplus_tpu.sdplr on the CPU, float32, on the instance of phase 10:
+#   A = synthetic_graph(20000, 16); C, As, b = maxcut(A)
+#   sdplr(C, As, b, 10, ptol=1e-2, objtol=1e-2, prior_trace_bound=20000.0,
+#         dtype="float32", seed=0)
+# -> obj -213944.546875, pinfeas 5.40e-3, claimed gap 1.21e-3, 334
+#    iterations, rank 10, engine fast-diag-spmm, one block bound of one
+#    step. Its certificate over-certifies: float64 eigsh at its multiplier
+#    gives a gap of 1.07e-2 (its block bound stops on the first step's
+#    partial breakdown; the port deflates, ops/blocklanczos.py). The JAX
+#    package's committed SYN20K artifact (exps/output/MaxCut/SYN20K/, a
+#    TPU run: 3919 iterations, rank 20, 5 bounds of 105 block passes) has
+#    obj -214563.25, 2.9e-3 from this one; phase 10 checks both.
+JAX_SYN20K_OBJ = -213944.546875
+JAX_SYN20K_ARTIFACT_OBJ = -214563.25
+
 PEAK_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,       # non-tensor FP32
               "float64": 34e12}       # non-tensor FP64
@@ -114,13 +160,18 @@ def main():
         make_random_graph, maxcut, minimum_bisection, mu_conductance_ineq,
         mu_conductance_lb, mu_conductance_ub, relaxed_maxcut_ineq,
     )
+    from sdplrplus_tpu_torch import probes
+    from sdplrplus_tpu_torch.models import synthetic_graph
+    from sdplrplus_tpu_torch.ops import gather as ga
     from sdplrplus_tpu_torch.ops import megakernel as mk
+    from sdplrplus_tpu_torch.ops import spmm as spmm_mod
+    from sdplrplus_tpu_torch.solver import major as major_mod
     from sdplrplus_tpu_torch.ops.device import to_device
     from sdplrplus_tpu_torch.problem import SDPProblem
     from sdplrplus_tpu_torch.solver.al import al_value_grad
     from sdplrplus_tpu_torch.solver.inner import inner_chunk
     from sdplrplus_tpu_torch.solver.lbfgs import lbfgs_init
-    from sdplrplus_tpu_torch.solver.outer import ENGINE_KERNEL
+    from sdplrplus_tpu_torch.solver.outer import ENGINE_FAST, ENGINE_KERNEL
 
     dev = torch.device("cuda")
 
@@ -143,14 +194,19 @@ def main():
         built = kern.built
         return kern, built, time.time() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = list(pool.map(build, (mk.K1, mk.K2)))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = list(pool.map(build, (mk.K1, mk.K2, ga.ROWS)))
     for kern, built, build_s in builds:
         ptxas = [ln.strip() for ln in built.log.splitlines()
                  if "registers" in ln or "spill" in ln]
-        say("build", f"{kern.name}: {os.path.relpath(built.path)} in "
+        label = "gather kernels" if kern is ga.ROWS else kern.name
+        say("build", f"{label}: {os.path.relpath(built.path)} in "
             f"{build_s:.1f} s (cached={built.cached}); ptxas: "
             f"{' / '.join(ptxas)}")
+
+    def zero_counts():
+        for kern in (mk.K1, mk.K2) + ga.KERNELS:
+            kern.launches = 0
 
     # ---- problems --------------------------------------------------------
     g800 = make_random_graph(800, 0.83, seed=1)
@@ -278,7 +334,7 @@ def main():
     C, As, b = maxcut(A)
     kw = dict(ptol=1e-2, objtol=1e-2, prior_trace_bound=800.0,
               dtype="float32", seed=0, printlevel=0)
-    mk.K1.launches = mk.K2.launches = 0
+    zero_counts()
     t0 = time.time()
     res = sdplr(C, As, b, RANK, **kw)
     torch.cuda.synchronize()
@@ -577,7 +633,7 @@ def main():
     kw2 = dict(constraint_types=ct2, ptol=1e-2, objtol=1e-2,
                prior_trace_bound=A.shape[0] * ub, dtype="float32", seed=0,
                printlevel=0)
-    mk.K1.launches = mk.K2.launches = 0
+    zero_counts()
     t0 = time.time()
     res = sdplr(C2, As2, b2, RANK, **kw2)
     torch.cuda.synchronize()
@@ -699,6 +755,340 @@ def main():
         f"warm solve {warm2_s:.3f} s ({res2['iter']} iterations), first "
         f"solve {cold2_s:.3f} s; nvidia-smi: {smi}")
 
+    # ---- 9. the gather kernels against their plain versions -------------
+    n_syn = 20000
+    A_syn = synthetic_graph(n_syn, 16)
+    C_syn, As_syn, b_syn = maxcut(A_syn)
+    t0 = time.time()
+    cp_syn = compile_problem(SDPProblem(C_syn, As_syn,
+                                        np.asarray(b_syn, np.float64), None))
+    compile_s = time.time() - t0
+    dp_syn = to_device(cp_syn, torch.float32, dev)
+    assert dp_syn.C_dense is None and dp_syn.has_ell2
+    ell1 = dp_syn.ell_cols.reshape(-1).contiguous()
+    ell2 = dp_syn.ell2_cols.reshape(-1).contiguous()
+    gen = torch.Generator().manual_seed(0)
+
+    gather_err = {k.name: 0.0 for k in ga.KERNELS}
+
+    def exact(got, want, what, kernel="gather_rows"):
+        assert got.shape == want.shape and got.dtype == want.dtype, what
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        assert torch.equal(got, want) and err == 0.0, (what, err)
+        gather_err[kernel] = max(gather_err[kernel], err)
+
+    checked = []
+    for r in (10, 20):
+        for dt in (torch.float32, torch.float64):
+            X = torch.randn((dp_syn.n_pad, r), generator=gen,
+                            dtype=dt).to(dev)
+            X[n_syn:] = 0.0          # the guaranteed-zero padding rows
+            for name, ids in (("tier 1", ell1), ("tier 2", ell2)):
+                for idt in (torch.int64, torch.int32):
+                    i = ids.to(idt)
+                    exact(ga.gather_rows(X, i), ga.gather_rows_plain(X, i),
+                          (name, r, dt, idt))
+            checked.append(f"r={r} {str(dt)[6:]}")
+    torch.cuda.synchronize()
+    X16 = torch.randn((probes.N, 16), generator=gen).to(dev)
+    X32 = torch.randn((probes.N, 32), generator=gen).to(dev)
+    idx = torch.randint(0, probes.N, (probes.T,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    for X in (X16, X32):
+        exact(ga.gather_rows(X, idx), ga.gather_rows_plain(X, idx), "P1/P3")
+    idx8 = torch.randint(0, probes.N // 8, (probes.T // 8,), generator=gen,
+                         dtype=torch.int32).to(dev)
+    exact(ga.gather_rows(X16, idx8, 8), ga.gather_rows_plain(X16, idx8, 8),
+          "P4 q=8")
+    Xt = torch.randn((1024, 16), generator=gen).to(dev)
+    it = torch.randint(0, 1024, (512,), generator=gen,
+                       dtype=torch.int32).to(dev)
+    exact(ga.gather_rows(Xt, it), ga.gather_rows_plain(Xt, it), "P2 tile")
+    for span, bucket in ((128, 512), (1024, 512)):
+        for X in (X16, X32):
+            wins = torch.randint(0, probes.N // span, (probes.T // bucket,),
+                                 generator=gen, dtype=torch.int32).to(dev)
+            offs = torch.randint(0, span, (probes.T,), generator=gen,
+                                 dtype=torch.int32).to(dev)
+            exact(ga.gather_window(X, wins, offs, span, bucket),
+                  ga.gather_window_plain(X, wins, offs, span, bucket),
+                  ("P5/P6", span, bucket), "gather_window")
+    for S, L in ((8, 128), (32, 1024), (8 * 512, 1024)):
+        for dt in (torch.float32, torch.float64):
+            Xl = torch.randn((S, L), generator=gen, dtype=dt).to(dev)
+            il = torch.randint(0, L, (S, L), generator=gen,
+                               dtype=torch.int32).to(dev)
+            exact(ga.gather_lanes(Xl, il), ga.gather_lanes_plain(Xl, il),
+                  ("P7/P8", S, L, dt), "gather_lanes")
+    torch.cuda.synchronize()
+    # the probe entry points, each probe once at its own shapes
+    zero_counts()
+    wins = torch.randint(0, probes.N // 128, (probes.T // 512,),
+                         generator=gen, dtype=torch.int32).to(dev)
+    offs = torch.randint(0, 128, (probes.T // 512, 512), generator=gen,
+                         dtype=torch.int32).to(dev)
+    idx_dma = (idx % (probes.N // 8)).contiguous()   # 8 rows per index
+    Xg = torch.randn((8 * 512, 1024), generator=gen).to(dev)
+    ig = torch.randint(0, 1024, (8 * 512, 1024), generator=gen,
+                       dtype=torch.int32).to(dev)
+    probe_out = {
+        "P1": probes.full_take_call(X16, idx, 16),
+        "P2": probes.sublane_take_call(Xt, it, 1024, 512, 16),
+        "P3": probes.pallas_take_call(X32, idx, 32),
+        "P4": probes.dma_gather(X16, idx_dma, 16, 8, 8),
+        "P5": probes.onehot_call(X16, wins, offs, 16, 128, 512),
+        "P6": probes.pallas_onehot_call(X16, wins, offs.reshape(-1), 16),
+        "P7": probes.lane_gather_call(Xg[:32], ig[:32], 32, 1024),
+        "P8": probes.lane_gather_grid(Xg, ig, 8, 1024, 512),
+    }
+    torch.cuda.synchronize()
+    probe_launches = {k.name: k.launches for k in ga.KERNELS}
+    assert probe_launches == {"gather_rows": 4, "gather_window": 2,
+                              "gather_lanes": 2}, probe_launches
+    exact(probe_out["P5"], probe_out["P6"], "P5 = P6 at span 128",
+          "gather_window")
+    exact(probe_out["P4"],
+          ga.gather_rows_plain(X16, idx_dma[:probes.T // 8], 8),
+          "P4 entry")
+    say("gather", f"gather_rows = X[idx] exactly (max |Δ| 0) at SYN20K's "
+        f"tier-1 ({ell1.numel()} ids) and tier-2 ({ell2.numel()} ids) "
+        f"columns for {', '.join(checked)}, int64 and int32 ids, and at "
+        f"the probes' shapes (X ({probes.N}, 16/32), T = {probes.T}, 1 and "
+        f"8 rows per index); gather_window exact at span/bucket (128, 512) "
+        f"and (1024, 512); gather_lanes exact on (8, 128), (32, 1024) and "
+        f"(4096, 1024) in float32 and float64; probe entry points P1-P8 "
+        f"launched {probe_launches}; SYN20K compile_problem {compile_s:.2f} "
+        f"s")
+
+    # ---- 10. SYN20K on the block-Lanczos bound --------------------------
+    # count the dual bounds by path (the solver's own calls, unchanged)
+    bounds = {"block": 0, "scalar": 0, "b": set(), "passes": 0}
+    real_block = major_mod.block_lanczos_min_eig
+    real_scalar = (major_mod.lanczos_alpha_beta_impl,
+                   major_mod.lanczos_alpha_beta_reorth_impl)
+
+    def counted_block(*a, **k):
+        out = real_block(*a, **k)
+        bounds["block"] += 1
+        bounds["b"].add(k["b"])
+        bounds["passes"] += out[2]
+        return out
+
+    def counted_scalar(fn):
+        def run(*a, **k):
+            bounds["scalar"] += 1
+            return fn(*a, **k)
+        return run
+
+    major_mod.block_lanczos_min_eig = counted_block
+    major_mod.lanczos_alpha_beta_impl = counted_scalar(real_scalar[0])
+    major_mod.lanczos_alpha_beta_reorth_impl = counted_scalar(real_scalar[1])
+    kw3 = dict(ptol=1e-2, objtol=1e-2, prior_trace_bound=float(n_syn),
+               dtype="float32", seed=0, printlevel=0)
+    zero_counts()
+    t0 = time.time()
+    res3 = sdplr(C_syn, As_syn, b_syn, RANK, **kw3)
+    torch.cuda.synchronize()
+    syn_s = time.time() - t0
+    syn_launches = {k.name: k.launches for k in (mk.K1, mk.K2) + ga.KERNELS}
+    major_mod.block_lanczos_min_eig = real_block
+    major_mod.lanczos_alpha_beta_impl, \
+        major_mod.lanczos_alpha_beta_reorth_impl = real_scalar
+    obj3, pinf3, gap3 = (res3["obj"], res3["primal_vio"],
+                         res3["rel_duality_gap"])
+    rel3 = abs(obj3 - JAX_SYN20K_OBJ) / abs(JAX_SYN20K_OBJ)
+    rel3a = abs(obj3 - JAX_SYN20K_ARTIFACT_OBJ) / abs(JAX_SYN20K_ARTIFACT_OBJ)
+    # float64 certificate at the solver's own multiplier, on the host
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import eigsh
+
+    t0 = time.time()
+    y_h = -np.asarray(res3["lambda"], np.float64)
+    S64 = sp.csr_matrix((C_syn.vals, (C_syn.rows, C_syn.cols)),
+                        shape=(n_syn, n_syn)) + sp.diags(y_h)
+    lam_min64 = float(eigsh(S64, k=1, which="SA", tol=1e-7)[0][0])
+    eigsh_s = time.time() - t0
+    dual64 = float(-y_h @ np.asarray(b_syn, np.float64)) \
+        + n_syn * min(lam_min64, 0.0)
+    obj_f = res3["obj_feasible"] if res3["obj_feasible"] is not None \
+        else obj3
+    gap64 = (obj_f - dual64) / min(abs(obj_f), abs(dual64))
+    say("syn20k", f"SYN20K MaxCut n={n_syn} edges={A_syn.nnz // 2}: engine "
+        f"{res3['inner_engine']}, launches {syn_launches}, obj {obj3!r}, "
+        f"pinfeas {pinf3:.3e}, gap {gap3:.3e}, iterations {res3['iter']}, "
+        f"majors {res3['majoriter']}, rank {res3['r']}, dual bounds "
+        f"{res3['dual_bounds_computed']} with {res3['dual_passes']} block "
+        f"passes at the final rank (the result's counts; over the whole "
+        f"solve: block {bounds['block']} with {bounds['passes']} passes, "
+        f"scalar {bounds['scalar']}, b {sorted(bounds['b'])}), "
+        f"|obj - JAX|/|JAX| {rel3:.3e} (the committed "
+        f"artifact: {rel3a:.3e}); float64 eigsh at the solver's multiplier: "
+        f"lambda_min {lam_min64:.6e}, dual {dual64!r}, gap {gap64:.3e} "
+        f"({eigsh_s:.1f} s); solve {syn_s:.3f} s")
+    assert res3["inner_engine"] == ENGINE_FAST, res3["inner_engine"]
+    assert syn_launches["K1"] == syn_launches["K2"] == 0, syn_launches
+    assert syn_launches["gather_rows"] > 0, syn_launches
+    assert bounds["block"] > 0 and bounds["scalar"] == 0, bounds
+    assert min(bounds["b"]) > 0 and res3["dual_passes"] > 0
+    assert np.isfinite(obj3) and np.all(np.isfinite(res3["R"]))
+    assert res3["R"].shape == (n_syn, res3["r"])
+    assert pinf3 <= 1e-2 and gap3 <= 1e-2, (pinf3, gap3)
+    assert rel3 <= 1e-2 and rel3a <= 1e-2, (obj3, rel3, rel3a)
+    assert gap3 >= gap64 - 2e-3, (gap3, gap64)
+
+    # ---- 11. gather times -------------------------------------------------
+    spmm_rows = []
+    for r in (10, 20):
+        X = torch.randn((dp_syn.n_pad, r), generator=gen).to(dev)
+        X[n_syn:] = 0.0
+        e1l, e2l = ell1, ell2
+
+        def kern():
+            ga.gather_rows(X, e1l)
+            ga.gather_rows(X, e2l)
+
+        def plain():
+            ga.gather_rows_plain(X, e1l)
+            ga.gather_rows_plain(X, e2l)
+
+        def lib():
+            torch.index_select(X, 0, e1l)
+            torch.index_select(X, 0, e2l)
+
+        t = probes.time_in_turns(kern, plain, lib, reps=50)
+        nidx = e1l.numel() + e2l.numel()
+        # int64 ids once, X once, the output once (X, 0.8 MB at r = 10,
+        # stays in L2, so a row gathered again is no HBM traffic)
+        nbytes = probes.gather_bytes(nidx, dp_syn.n_pad * r, nidx * r,
+                                     idx_bytes=8)
+        spmm_rows.append(dict(r=r, indices=nidx,
+                              bound_ms=probes.bound_ms(nbytes), **t))
+    probe_rows = probes.time_probes(reps=20)
+
+    # where an iteration of the SYN20K solve goes: 40 inner steps of the
+    # torch fast-diagonal loop at the solve's final factor (rank 20),
+    # timed with CUDA events, with torch.profiler's device time by kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    r_fin = res3["r"]
+    R_fin = torch.zeros((dp_syn.n_pad, r_fin), device=dev)
+    R_fin[:n_syn] = torch.tensor(res3["R"], device=dev)
+    lam_fin = torch.tensor(res3["lambda_last"], dtype=torch.float32,
+                           device=dev)
+    sig_fin = torch.tensor(res3["sigma"], dtype=torch.float32, device=dev)
+    L0s, vio0s, G0s, y0s, gn0s, _ = al_value_grad(dp_syn, R_fin, lam_fin,
+                                                   sig_fin, True, True)
+
+    def syn_steps(steps):
+        c, _ = inner_chunk(dp_syn, R_fin, G0s, y0s, vio0s, L0s, gn0s,
+                           lbfgs_init(K, dp_syn.n_pad, r_fin, torch.float32,
+                                      dev),
+                           lam_fin, sig_fin, -1.0, ninf, steps, k=K,
+                           use_armijo=False, gtol_relative=True,
+                           ptol_relative=True)
+        assert c.steps == steps
+        return c
+
+    syn_steps(5)
+    nsteps = 40
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    syn_steps(nsteps)
+    e1.record()
+    torch.cuda.synchronize()
+    step_ms = e0.elapsed_time(e1) / nsteps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        syn_steps(nsteps)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.time() - t0) * 1e3
+    # the kernels' own events (device type CUDA) only: an operator's
+    # event carries the time of the kernels it launched too, and would
+    # count it twice; the all-event sum is printed beside it
+    dev_us, all_us = {}, 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        all_us += us
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[ev.key] = us
+    dev_total_ms = sum(dev_us.values()) / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    busy = dev_total_ms / prof_wall_ms if prof_wall_ms > 0 else 0.0
+    say("profile", f"SYN20K torch fast-diagonal inner loop at rank {r_fin}: "
+        f"{step_ms:.3f} ms per iteration (CUDA events, {nsteps} steps); "
+        f"under torch.profiler {prof_wall_ms / nsteps:.3f} ms per iteration "
+        f"of host wall, {dev_total_ms / nsteps:.4f} ms of device kernel "
+        f"time per iteration (device busy {busy:.3%}; all events, "
+        f"operators included: {all_us / 1e3 / nsteps:.4f} ms); top "
+        f"kernels by device time per iteration (us): "
+        f"{json.dumps([(k[:60], round(v / nsteps, 2)) for k, v in top])}; "
+        f"solve {syn_s:.3f} s over {res3['iter']} iterations = "
+        f"{1e3 * syn_s / max(res3['iter'], 1):.3f} ms per iteration")
+    # the gather end to end: the same work with the SpMM's row gather
+    # through the kernel and through its plain version X[idx], in turns
+    # (kernel, plain, plain, kernel): 40 steps of the SYN20K loop above
+    # and the warm G1-shaped mu-conductance solve of phase 8, whose
+    # scalar Lanczos passes are ELL SpMMs
+    real_gather = spmm_mod.gather_rows
+
+    def with_gather(fn, plain):
+        spmm_mod.gather_rows = ga.gather_rows_plain if plain \
+            else real_gather
+        try:
+            return fn()
+        finally:
+            spmm_mod.gather_rows = real_gather
+
+    def loop_ms():
+        torch.cuda.synchronize()
+        e0.record()
+        syn_steps(nsteps)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / nsteps
+
+    def mucond_solve():
+        t0 = time.time()
+        r_ = sdplr(C2, As2, b2, RANK, **kw2)
+        torch.cuda.synchronize()
+        assert r_["primal_vio"] <= 1e-2 and r_["rel_duality_gap"] <= 1e-2
+        return time.time() - t0, r_["iter"], r_["dual_passes"]
+
+    swap = {w: {"syn20k_loop_ms": [], "mucond_s": [], "mucond_iters": []}
+            for w in ("kernel", "plain")}
+    for who in ("kernel", "plain", "plain", "kernel"):
+        plain_g = who == "plain"
+        swap[who]["syn20k_loop_ms"].append(with_gather(loop_ms, plain_g))
+        sec, its, _ = with_gather(mucond_solve, plain_g)
+        swap[who]["mucond_s"].append(sec)
+        swap[who]["mucond_iters"].append(its)
+    say("swap", f"the SpMM's row gather end to end, kernel against X[idx] "
+        f"(turns kernel, plain, plain, kernel): {json.dumps(swap)}; "
+        f"SYN20K loop at rank {r_fin} "
+        f"{statistics.median(swap['kernel']['syn20k_loop_ms']):.3f} ms per "
+        f"iteration with the kernel, "
+        f"{statistics.median(swap['plain']['syn20k_loop_ms']):.3f} with "
+        f"X[idx]; mu-conductance warm solve "
+        f"{statistics.median(swap['kernel']['mucond_s']):.3f} s with the "
+        f"kernel, {statistics.median(swap['plain']['mucond_s']):.3f} s "
+        f"with X[idx]; nvidia-smi: {smi}")
+
+    say("times3", f"gather_rows per SpMM at SYN20K shapes (tier 1 + tier 2, "
+        f"int64 ids, float32): {json.dumps(spmm_rows)}; at the probes' "
+        f"shapes: {json.dumps(probe_rows)}; SYN20K solve {syn_s:.3f} s, "
+        f"{res3['iter']} iterations, rank {res3['r']}, {bounds['block']} "
+        f"block bounds with {bounds['passes']} passes (final rank: "
+        f"{res3['dual_bounds_computed']} with {res3['dual_passes']}), "
+        f"{syn_launches['gather_rows']} gather_rows launches "
+        f"per solve ({syn_launches['gather_rows'] / max(res3['iter'], 1):.2f}"
+        f" per iteration); nvidia-smi: {smi}")
+
+    def probe_row(kernel):
+        return next(p for p in probe_rows if p["kernel"] == kernel)
+
     kernels = [{
         "name": "K1 inner-loop megakernel (100 L-BFGS iterations, G1 shapes,"
                 " float32)",
@@ -725,6 +1115,50 @@ def main():
         "bound_ms": bound2_ms,
         "bound_by": bound2_by,
         "library_ms": None,
+    }, {
+        "name": "gather_rows (ELL row gather, one SpMM = tier 1 + tier 2, "
+                "SYN20K shapes, r = 10, float32)",
+        "route": "cuda",
+        "source": "sdplrplus_tpu_torch/csrc/gather.cu",
+        "replaces": "exps/probe3.py:97 (_full_take_call; also "
+                    "exps/probe3.py:83, exps/probe_gather.py:66, "
+                    "exps/probe5.py:42)",
+        "launches": syn_launches["gather_rows"],
+        "max_abs_err": gather_err["gather_rows"],
+        "ms": spmm_rows[0]["kernel_ms"],
+        "plain_ms": spmm_rows[0]["plain_ms"],
+        "bound_ms": spmm_rows[0]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": spmm_rows[0]["library_ms"],
+    }, {
+        "name": "gather_window (window select, span 128, bucket 512, "
+                "X (100000, 16), T = 2^19, float32; launches: probe entry "
+                "point)",
+        "route": "cuda",
+        "source": "sdplrplus_tpu_torch/csrc/gather.cu",
+        "replaces": "exps/probe2.py:104 (_onehot_call; also "
+                    "exps/probe_gather.py:93)",
+        "launches": probe_launches["gather_window"],
+        "max_abs_err": gather_err["gather_window"],
+        "ms": probe_row("gather_window")["kernel_ms"],
+        "plain_ms": probe_row("gather_window")["plain_ms"],
+        "bound_ms": probe_row("gather_window")["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "gather_lanes (take along rows, (4096, 1024) grid, float32; "
+                "launches: probe entry point)",
+        "route": "cuda",
+        "source": "sdplrplus_tpu_torch/csrc/gather.cu",
+        "replaces": "exps/probe3.py:48 (_lane_gather_call; also "
+                    "exps/probe3.py:63)",
+        "launches": probe_launches["gather_lanes"],
+        "max_abs_err": gather_err["gather_lanes"],
+        "ms": probe_row("gather_lanes")["kernel_ms"],
+        "plain_ms": probe_row("gather_lanes")["plain_ms"],
+        "bound_ms": probe_row("gather_lanes")["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": probe_row("gather_lanes")["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -313,3 +313,18 @@ def make_random_graph(n: int, p: float, seed: int = 0) -> sp.csr_matrix:
     Ad = (Ad > p).astype(np.float64)
     np.fill_diagonal(Ad, 0.0)
     return sp.csr_matrix(Ad)
+
+
+def synthetic_graph(n: int, deg: int, seed: int = 1) -> sp.csr_matrix:
+    """Seeded random graph with n vertices and about n·deg/2 undirected
+    edges, the G(n, M)-style instance of the JAX package's scale runs
+    (``synthetic_graph`` of its experiment script; SYN20K is
+    ``synthetic_graph(20000, 16)``, 319,699 edges)."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), deg)
+    cols = rng.integers(0, n, n * deg)
+    keep = rows != cols
+    A = sp.csr_matrix(
+        (np.ones(keep.sum()), (rows[keep], cols[keep])), shape=(n, n)
+    )
+    return A.maximum(A.T)

@@ -52,6 +52,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.build import CudaLibrary
 from .device import DeviceProblem
 
 MAX_LR_TERMS = 4
@@ -824,56 +825,38 @@ class _K2Args(ctypes.Structure):
 
 class CudaKernel:
     """A kernel's shared library, built from ``csrc/<source>`` at first
-    use, and its launch count (``launches``: one per kernel launch on the
-    main path; nothing else adds to it). The library exports
-    ``<prefix>_limits``, ``_plan``, ``_launch`` and ``_error_string``."""
+    use (``utils/build.CudaLibrary``), and its launch count
+    (``launches``: one per kernel launch on the main path; nothing else
+    adds to it). The library exports ``<prefix>_limits``, ``_plan``,
+    ``_launch`` and ``_error_string``."""
 
     def __init__(self, name: str, source: str, prefix: str, args_type,
                  limits: tuple):
-        self.name, self.source, self.prefix = name, source, prefix
+        self.name, self.prefix = name, prefix
         self.args_type, self.limits = args_type, limits
         self.launches = 0
-        self._built = None
+        by_ref = [ctypes.POINTER(args_type)]
+        self.lib = CudaLibrary(
+            source, {f"{prefix}_limits": [ctypes.POINTER(ctypes.c_int)],
+                     f"{prefix}_plan": by_ref, f"{prefix}_launch": by_ref},
+            f"{prefix}_error_string", on_load=self._check_limits)
 
-    def _fn(self, lib, what: str):
-        return getattr(lib, f"{self.prefix}_{what}")
+    def _check_limits(self, lib):
+        want = self.limits + (ctypes.sizeof(self.args_type),)
+        lim = (ctypes.c_int * len(want))()
+        getattr(lib, f"{self.prefix}_limits")(lim)
+        if tuple(lim) != want:
+            raise RuntimeError(
+                f"{self.lib.source} limits {tuple(lim)} disagree with the "
+                f"wrapper's {want}")
 
     @property
     def built(self):
-        if self._built is None:
-            from ..utils.build import build_cuda
-
-            built = build_cuda(self.source)
-            lib = built.lib
-            limits = self._fn(lib, "limits")
-            limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            limits.restype = ctypes.c_int
-            for what in ("plan", "launch"):
-                fn = self._fn(lib, what)
-                fn.argtypes = [ctypes.POINTER(self.args_type)]
-                fn.restype = ctypes.c_int
-            err = self._fn(lib, "error_string")
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            want = self.limits + (ctypes.sizeof(self.args_type),)
-            lim = (ctypes.c_int * len(want))()
-            limits(lim)
-            if tuple(lim) != want:
-                raise RuntimeError(
-                    f"{self.source} limits {tuple(lim)} disagree with the "
-                    f"wrapper's {want}")
-            self._built = built
-        return self._built
-
-    def _check(self, rc: int, what: str):
-        if rc != 0:
-            msg = self._fn(self.built.lib, "error_string")(rc).decode()
-            raise RuntimeError(
-                f"{self.name} {what} failed: CUDA error {rc} ({msg})")
+        return self.lib.built
 
     def plan(self, args):
-        self._check(self._fn(self.built.lib, "plan")(ctypes.byref(args)),
-                    "plan")
+        self.lib.call(f"{self.prefix}_plan", ctypes.byref(args),
+                      what=f"{self.name} plan")
         if args.blocks_per_sm * args.sms < args.nblk or args.S > 16:
             raise RuntimeError(
                 f"{self.name} grid of {args.nblk} blocks ({args.S} columns "
@@ -883,8 +866,8 @@ class CudaKernel:
 
     def launch(self, args):
         self.plan(args)
-        self._check(self._fn(self.built.lib, "launch")(ctypes.byref(args)),
-                    "launch")
+        self.lib.call(f"{self.prefix}_launch", ctypes.byref(args),
+                      what=f"{self.name} launch")
         self.launches += 1
 
 

@@ -7,8 +7,9 @@ src/coreop.jl:376-415) and the six DIMACS error metrics
 
     dual_value = -⟨y[0:m], b⟩ + trace_bound · min(λ_min(S), 0)
 
-with y = [-min(λ_ub, λ - σv); 1] and S = Σ yᵢAᵢ + C. The block-Lanczos
-path is a later slice of the port.
+with y = [-min(λ_ub, λ - σv); 1] and S = Σ yᵢAᵢ + C, λ_min(S) from the
+scalar Lanczos path (ops/lanczos.py) or the block path
+(ops/blocklanczos.py).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.adjoint import apply_S, y_of
+from ..ops.blocklanczos import block_lanczos_min_eig
 from ..ops.device import DeviceProblem
 from ..ops.lanczos import (
     bucket_q_max,
@@ -129,13 +131,21 @@ def ls_dual_head(dp: DeviceProblem, R, CR=None, y_fallback=None):
 def dual_obj(dp: DeviceProblem, lam, sigma, vio_raw, trace_bound: float,
              iter_count: int, generator: torch.Generator,
              highprecision: bool = False, safeguard: bool = True, R=None,
-             v0=None):
+             v0=None, block: tuple | None = None,
+             margin_target: float = 0.0, R_seed=None, k_min: int = 4):
     """Returns (dual_value, min_eig, y_full) (reference:
     src/coreop.jl:376-415). With ``safeguard`` the Lanczos Ritz value is
     corrected by its residual bound β_k·|s_k|. With ``R`` on an
     LS-eligible problem the bound is evaluated at the least-squares
     multiplier (solver/major.py's dual_bound). The Lanczos start vector is
-    ``v0`` or a draw from ``generator``."""
+    ``v0`` or a draw from ``generator``.
+
+    ``block`` = (b, k_max) takes the block-Lanczos path: one b-lane
+    operator pass per step, the start block seeded with ``R_seed`` (or
+    ``R``), early exit once the certified margin drops below
+    ``margin_target`` (λ units) and at least ``k_min`` steps (the
+    caller's minimum Krylov depth). The block path is always
+    residual-safeguarded."""
     if R is not None and dp.ls_eligible:
         y_al = -torch.minimum(dp.lam_ub, lam - sigma * vio_raw[: dp.m])
         y_ls_head = ls_dual_head(dp, R, y_fallback=y_al)
@@ -143,9 +153,18 @@ def dual_obj(dp: DeviceProblem, lam, sigma, vio_raw, trace_bound: float,
         return dual_obj(dp, -y_ls_head, torch.zeros_like(sigma),
                         torch.zeros_like(vio_raw), trace_bound, iter_count,
                         generator, highprecision=highprecision,
-                        safeguard=safeguard, v0=v0)
+                        safeguard=safeguard, v0=v0, block=block,
+                        margin_target=margin_target, R_seed=R,
+                        k_min=k_min)
     dtype = lam.dtype
     y_full = y_of(dp, lam, sigma, vio_raw)
+    if block is not None and block[0] > 0:
+        theta, margin, _ = block_lanczos_min_eig(
+            dp, y_full, generator, R_seed, margin_target, int(k_min),
+            b=int(block[0]), k_max=int(block[1]))
+        min_eig = theta - margin
+        yb = float(torch.dot(y_full[: dp.m], dp.b))
+        return -yb + float(trace_bound) * min(min_eig, 0.0), min_eig, y_full
     if v0 is None:
         v0 = lanczos_v0(dp, generator, dtype)
     if highprecision:

@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from ..ops.blocklanczos import block_lanczos_min_eig
 from ..ops.device import DeviceProblem, fast_diag_eligible
 from ..ops.lanczos import (
     lanczos_alpha_beta_impl,
@@ -95,7 +96,10 @@ def major_chunk(
     highprecision: bool,
     dual_safeguard: bool = True,
     lbfgs_compact: bool = True,
-    blk_b: int = 0,
+    blk_b: int = 0,       # block-Lanczos dual bound (ops/blocklanczos.py):
+    blk_kmax: int = 0,    # block size / max block steps; 0 = scalar path
+    blk_margin_frac: float = 0.25,  # stop when tb·margin ≤ frac·objtol·|obj|
+    blk_k_min: int = 4,   # minimum Krylov depth (block steps)
     mega_spec=None,       # ops/megakernel.MegaSpec: the inner loop runs
     mega_r: int = 0,      # as one megakernel call per activation
     lanczos_v0=None,      # (n_pad, 1) start vector for every bound of
@@ -103,9 +107,6 @@ def major_chunk(
 ):
     """Advance the solve by up to ``budget`` inner steps / ``major_budget``
     major boundaries. Returns (MajorCarry, vio_norm)."""
-    if blk_b > 0:
-        raise NotImplementedError(
-            "the block-Lanczos dual bound is ROADMAP slice B")
     dtype, dev = carry.ic.R.dtype, carry.ic.R.device
     m = dp.m
     f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
@@ -149,8 +150,24 @@ def major_chunk(
 
     def bound_for(c: MajorCarry, y_head):
         """Safeguarded Lanczos dual value for one multiplier estimate
-        (reference: src/coreop.jl:376-415). Returns (dual, passes)."""
+        (reference: src/coreop.jl:376-415), on the block path when
+        ``blk_b`` > 0. Returns (dual, passes): passes are operator
+        applications (block steps on the block path)."""
         y_full = torch.cat([y_head, torch.ones(1, dtype=dtype, device=dev)])
+        yb = torch.dot(y_full[:m], dp.b)
+        if blk_b > 0:
+            # block-Lanczos path: R-seeded start block, one b-lane operator
+            # pass per step, early exit on the certified residual margin
+            # (margin target mt in λ units). Always safeguarded
+            denom = c.ic.vio_raw[m].abs() if objtol_relative \
+                else torch.ones((), dtype=dtype, device=dev)
+            mt = (blk_margin_frac * objtol * torch.clamp(denom, min=1e-8)
+                  / torch.clamp(trace_bound, min=1.0))
+            theta, margin, k_used = block_lanczos_min_eig(
+                dp, y_full, c.generator, c.ic.R, float(mt), blk_k_min,
+                b=blk_b, k_max=blk_kmax)
+            min_eig = f(theta) - f(margin)
+            return -yb + trace_bound * torch.clamp(min_eig, max=0.0), k_used
         v0 = lanczos_v0 if lanczos_v0 is not None else draw_lanczos_v0(
             dp, c.generator, dtype)
         if highprecision:
@@ -169,7 +186,6 @@ def major_chunk(
             min_eig = theta - margin
         else:
             min_eig = tridiag_min_eig_device(alpha, beta, k_eff)
-        yb = torch.dot(y_full[:m], dp.b)
         return -yb + trace_bound * min(min_eig, 0.0), int(k_eff)
 
     def dual_bound(c: MajorCarry):

@@ -10,11 +10,13 @@ f64 dual polish and the reseed ladder.
 
 The port runs problems whose sparse constraints are all diagonal: the
 dense engine (C held dense: MaxCut, MinBisection, CutNorm at n_pad ≤
-2048) and the fast-diagonal engine (C kept sparse, e.g. μ-conductance,
-whose wide volume constraint keeps C out of dense mode), with equality
-constraints (exact line search) or inequalities (Armijo). Other engines
-and options raise NotImplementedError naming the ROADMAP slice that
-ports them.
+2048) and the fast-diagonal engine (C kept sparse: MaxCut and its kin
+past n_pad 2048, μ-conductance, whose wide volume constraint keeps C out
+of dense mode), with equality constraints (exact line search) or
+inequalities (Armijo), and the scalar or block-Lanczos dual bound (block
+past n = 4096, when forced, or when the scalar schedule wants more than
+1024 steps). Other engines and options raise NotImplementedError naming
+the ROADMAP slice that ports them.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from ..compile import compile_problem
 from ..config import SolverConfig, resolve_device, resolve_dtype
+from ..ops.blocklanczos import block_sizes
 from ..ops.device import DeviceProblem, fast_diag_eligible, to_device
 from ..problem import SDPProblem
 from ..utils.printing import print_heading, print_intermediate
@@ -135,6 +138,17 @@ def _want_block_lanczos(lanczos_block: int, highprecision: bool,
     if lanczos_block < 0 or highprecision:
         return False
     return lanczos_block > 0 or n > 4096 or min(q_raw, n) > 1024
+
+
+def _blk_for(lanczos_block: int, highprecision: bool, n: int, r: int,
+             q_raw: int = 0) -> tuple:
+    """(b, k_max) for the block-Lanczos dual bound, or (0, 0) for the
+    scalar path (outer.py:617-633): block for n > 4096, when forced, or
+    when the scalar schedule wants more than 1024 steps, so the scalar
+    path's 1024-step ceiling never silently shortens a certificate."""
+    if not _want_block_lanczos(lanczos_block, highprecision, n, q_raw):
+        return 0, 0
+    return block_sizes(n, r, max(lanczos_block, 0))
 
 
 def _engine_name(dp, use_mega: bool) -> str:
@@ -347,11 +361,9 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
             mega_meta, mega_data = prepare_mega_data(
                 dp, k=k, gtol_relative=gtol_rel, ptol_relative=ptol_rel)
 
-    def blk_for(r_now: int, q_raw: int = 0) -> int:
-        if _want_block_lanczos(config.lanczos_block,
-                               config.eigval_highprecision, n, q_raw):
-            _not_ported("the block-Lanczos dual bound", "slice B")
-        return 0
+    def blk_for(r_now: int, q_raw: int = 0) -> tuple:
+        return _blk_for(config.lanczos_block, config.eigval_highprecision,
+                        n, r_now, q_raw)
 
     def mega_kwargs(r_now: int) -> dict:
         if mega_meta is None or not megakernel_eligible(
@@ -390,6 +402,8 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
     adapt = config.dispatch_target_s > 0 and dp.n_pad > 4096
     chunk_now = min(config.inner_chunk, 250) if adapt else config.inner_chunk
     gtol_floor = _gtol_floor(config, dtype)
+    # minimum block-Krylov depth ~ log2(n) (outer.py:745-747)
+    k_min_base = max(4, int(np.ceil(np.log2(max(n, 2)))))
 
     while True:
         steps_now = carry.ic.steps
@@ -409,10 +423,20 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
         q_raw = lanczos_q(total_iter + chunk, n) * q_boost
         if config.eigval_highprecision:
             q_raw = min(max(100, 2 * q_raw), n)
-        blk_for(r, q_raw)
-        q_max = bucket_q_max(min(q_raw, max(n, 1), 1024))
-        dispatch_majors = (min(major_thresh, majors_now + 2) if adapt
-                           else major_thresh)
+        blk = blk_for(r, q_raw)
+        # the scalar path's 1024-step ceiling; a schedule that wants more
+        # has escalated to the block path in blk_for (outer.py:739)
+        q_need = min(q_raw, max(n, 1), 1024)
+        q_max = bucket_q_max(q_need)
+        # gap-stall escalation (q_boost) demands a deeper minimum Krylov
+        # depth and a tighter margin (outer.py:745-747)
+        blk_margin_frac = 0.25 / q_boost
+        blk_k_min = min(k_min_base * q_boost, blk[1]) if blk[0] else 4
+        # major boundaries per dispatch, sized to the boundary's cost: a
+        # block bound is a few dozen passes, a scalar one up to 1024
+        dispatch_majors = (
+            min(major_thresh, majors_now + (8 if blk[0] else 2))
+            if adapt else major_thresh)
         t_dispatch = time.time()
         carry, vio_norm_d = major_chunk(
             dp, carry, steps_now + chunk, dispatch_majors, base_total,
@@ -424,6 +448,8 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
             highprecision=bool(config.eigval_highprecision),
             dual_safeguard=bool(config.dual_safeguard),
             lbfgs_compact=config.lbfgs_impl == "compact",
+            blk_b=blk[0], blk_kmax=blk[1],
+            blk_margin_frac=blk_margin_frac, blk_k_min=blk_k_min,
             **mega_kwargs(r),
         )
         new_steps = carry.ic.steps
@@ -548,30 +574,39 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
     if feas == 0 and config.objtol != np.inf and m > 0:
         # the run never reached a strict boundary (timeout / maxiter /
         # stall): still report a (weak) dual bound from the final iterate
+        blk_f = blk_for(r)
+        obj_now = abs(float(vio_raw[m]))
+        mt_f = 0.25 * config.objtol * (
+            max(obj_now, 1e-8) if objtol_rel else 1.0
+        ) / max(config.prior_trace_bound, 1.0)
         dv, _, y_d = dual_obj(
             dp, lam, carry.sigma, vio_raw, config.prior_trace_bound,
             max(base_total + carry.ic.steps, 1), gen,
             highprecision=config.eigval_highprecision,
-            safeguard=config.dual_safeguard)
+            safeguard=config.dual_safeguard,
+            block=blk_f if blk_f[0] else None, margin_target=mt_f,
+            R_seed=R, k_min=min(k_min_base, blk_f[1]))
         if float(dv) > max_dual_f:
             max_dual_f = float(dv)
             best_lam_np = -y_d[:m].cpu().numpy().astype(np.float64)
         feas = 1
-        extra_dual_passes = 1024
+        extra_dual_passes = blk_f[1] if blk_f[0] else 1024
 
     # dual-time attribution from the measured operator-pass count
     # (outer.py:1013-1049): on the gather-bound fast-diagonal engine an
-    # inner iteration is one SpMM, as is a Krylov pass; on the
-    # matmul-bound engines (dense, megakernels) an inner iteration costs
-    # ~3·r units and a Krylov pass one
+    # inner iteration is one SpMM, as is a Krylov pass of any lane count;
+    # on the matmul-bound engines (dense, megakernels) an inner iteration
+    # costs ~3·r units and a Krylov pass its lane count (b or 1)
     dual_time = 0.0
     total_steps = base_total + carry.ic.steps
     dual_passes = carry.dual_passes + extra_dual_passes
     if dual_passes > 0 and total_steps > 0:
-        dual_units = float(dual_passes)
         if _engine_name(dp, bool(mega_kwargs(r))) == ENGINE_FAST:
+            dual_units = float(dual_passes)
             primal_units = float(total_steps)
         else:
+            lanes = max(blk_for(r)[0], 1)
+            dual_units = float(dual_passes) * float(lanes)
             primal_units = 3.0 * float(max(r, 1)) * float(total_steps)
         frac = dual_units / max(dual_units + primal_units, 1e-30)
         dual_time = min(max(frac * totaltime, 0.0), totaltime)

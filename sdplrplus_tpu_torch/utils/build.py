@@ -9,7 +9,9 @@ Deleting that directory forces a rebuild.
 CUDA sources have a plain C interface and are loaded with ``ctypes``:
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC``. A library is keyed by a hash of its source and flags, so an
-edited source never loads a stale build.
+edited source never loads a stale build. ``CudaLibrary`` is how a kernel
+wrapper holds one: built and typed at first use, every entry point's
+``cudaError_t`` turned into a RuntimeError.
 """
 
 from __future__ import annotations
@@ -87,3 +89,41 @@ def build_cuda(src_name: str) -> Built:
     log = open(log_path).read() if os.path.exists(log_path) else ""
     lib = ctypes.CDLL(so)
     return Built(lib, so, log, time.time() - t0, cached)
+
+
+class CudaLibrary:
+    """``csrc/<source>``, built and loaded at first use, with its entry
+    points typed. Every entry point returns a ``cudaError_t`` (an int);
+    ``call`` raises a RuntimeError on a non-zero one, with the message of
+    the library's ``error_fn``. ``on_load(lib)`` runs once, after the
+    first load, before the library is used (and raises to refuse it)."""
+
+    def __init__(self, source: str, entries: dict, error_fn: str,
+                 on_load=None):
+        self.source, self.entries, self.error_fn = source, entries, error_fn
+        self.on_load = on_load
+        self._built = None
+        self._fns = {}
+
+    @property
+    def built(self) -> Built:
+        if self._built is None:
+            built = build_cuda(self.source)
+            for name, argtypes in self.entries.items():
+                fn = getattr(built.lib, name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                self._fns[name] = fn
+            err = getattr(built.lib, self.error_fn)
+            err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+            if self.on_load is not None:
+                self.on_load(built.lib)
+            self._built = built
+        return self._built
+
+    def call(self, entry: str, *args, what: str = "") -> None:
+        lib = self.built.lib
+        rc = self._fns[entry](*args)
+        if rc != 0:
+            msg = getattr(lib, self.error_fn)(rc).decode()
+            raise RuntimeError(
+                f"{what or entry} failed: CUDA error {rc} ({msg})")

@@ -1,6 +1,6 @@
-"""K1 and K2 on the card: each CUDA kernel against its plain version, and
-solves served by them. Every test here needs an H100 and nvcc (marker
-``cuda``) and skips elsewhere. The file imports no JAX, so it runs on a machine
+"""The CUDA kernels on the card: K1, K2 and the three gather kernels
+against their plain versions, and solves served by them. Every test here
+needs an H100 and nvcc (marker ``cuda``) and skips elsewhere. The file imports no JAX, so it runs on a machine
 that has only PyTorch (``--noconftest``: tests/conftest.py sets up JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -13,11 +13,13 @@ import torch
 from sdplrplus_tpu_torch import sdplr
 from sdplrplus_tpu_torch.compile import compile_problem
 from sdplrplus_tpu_torch.models import problems
+from sdplrplus_tpu_torch.ops import gather as ga
 from sdplrplus_tpu_torch.ops import megakernel as mk
+from sdplrplus_tpu_torch.ops.spmm import spmm_C
 from sdplrplus_tpu_torch.ops.device import to_device
 from sdplrplus_tpu_torch.problem import SDPProblem
 from sdplrplus_tpu_torch.solver.lbfgs import lbfgs_init
-from sdplrplus_tpu_torch.solver.outer import ENGINE_KERNEL
+from sdplrplus_tpu_torch.solver.outer import ENGINE_FAST, ENGINE_KERNEL
 
 FAMILIES = ("maxcut", "minimum_bisection", "cutnorm")
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -174,3 +176,120 @@ def test_mucond_solve_on_the_card_runs_k2(h100):
     assert res["primal_vio"] <= 1e-2 and res["rel_duality_gap"] <= 1e-2
     ref = sdplr(C, As, b, 10, device="cpu", **kw)
     assert abs(res["obj"] - ref["obj"]) <= 1e-2 * abs(ref["obj"])
+
+
+# ---- the gather kernels (csrc/gather.cu): a gather is exact ----------------
+
+IDX = {"int32": torch.int32, "int64": torch.int64}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("idx", sorted(IDX))
+@pytest.mark.parametrize("r,q", [(10, 1), (20, 1), (16, 8), (3, 2)])
+def test_gather_rows_matches_its_plain_version(h100, dtype, idx, r, q):
+    g = torch.Generator().manual_seed(r * q)
+    X = torch.randn((5000, r), generator=g, dtype=DTYPES[dtype]).cuda()
+    i = torch.randint(0, 5000 // q, (7777,), generator=g).to(IDX[idx]).cuda()
+    before = ga.ROWS.launches
+    got = ga.gather_rows(X, i, q)
+    torch.cuda.synchronize()
+    assert ga.ROWS.launches == before + 1
+    assert torch.equal(got, ga.gather_rows_plain(X, i, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span,bucket", [(128, 512), (1024, 512), (7, 3)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_gather_window_matches_its_plain_version(h100, span, bucket, dtype):
+    g = torch.Generator().manual_seed(span)
+    X = torch.randn((10_000, 16), generator=g, dtype=DTYPES[dtype]).cuda()
+    nt = 37
+    wins = torch.randint(0, 10_000 // span, (nt,), generator=g).cuda()
+    offs = torch.randint(0, span, (nt, bucket), generator=g).cuda()
+    before = ga.WINDOW.launches
+    got = ga.gather_window(X, wins, offs, span, bucket)
+    torch.cuda.synchronize()
+    assert ga.WINDOW.launches == before + 1
+    assert torch.equal(got, ga.gather_window_plain(X, wins, offs, span,
+                                                   bucket))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,L", [(8, 128), (32, 1024), (4096, 1024),
+                                 (3, 20000)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_gather_lanes_matches_its_plain_version(h100, S, L, dtype):
+    """(3, 20000) in float64 is 160 KB a row: read from global memory, not
+    staged through shared memory."""
+    g = torch.Generator().manual_seed(S)
+    X = torch.randn((S, L), generator=g, dtype=DTYPES[dtype]).cuda()
+    i = torch.randint(0, L, (S, L), generator=g,
+                      dtype=torch.int32).cuda()
+    before = ga.LANES.launches
+    got = ga.gather_lanes(X, i)
+    torch.cuda.synchronize()
+    assert ga.LANES.launches == before + 1
+    assert torch.equal(got, ga.gather_lanes_plain(X, i))
+
+
+@pytest.mark.cuda
+def test_gather_refuses_what_it_does_not_take(h100):
+    X = torch.zeros((10, 4), device="cuda")
+    i = torch.zeros(3, dtype=torch.int64, device="cuda")
+    with pytest.raises(TypeError):
+        ga.gather_rows(X.half(), i)
+    with pytest.raises(TypeError):
+        ga.gather_rows(X, i.float())
+    with pytest.raises(ValueError):
+        ga.gather_rows(X.t(), i)
+    with pytest.raises(ValueError):
+        ga.gather_rows(X, i.cpu())
+
+
+@pytest.mark.cuda
+def test_spmm_and_a_fast_diagonal_solve_run_the_gather_kernel(h100):
+    """C@X through the ELL layout on the card equals the CPU's, and a
+    MaxCut past n_pad 2048 runs on the fast-diagonal engine with the
+    block-Lanczos bound (forced), launching gather_rows and no K1."""
+    A = problems.synthetic_graph(3000, 8)
+    C, As, b = problems.maxcut(A)
+    cp = compile_problem(SDPProblem(C, As, np.asarray(b, float), None),
+                         dense=False)
+    X = np.random.default_rng(0).standard_normal((cp.n_pad, 10))
+    out = {}
+    for device in ("cuda", "cpu"):
+        dp = to_device(cp, torch.float64, device)
+        out[device] = spmm_C(dp, torch.tensor(X, device=device)).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-12,
+                               atol=1e-12)
+    kw = dict(ptol=1e-2, objtol=1e-2, prior_trace_bound=3000.0,
+              dtype="float32", seed=0, printlevel=0, lanczos_block=16,
+              dense_mode=False)
+    k1, rows = mk.K1.launches, ga.ROWS.launches
+    res = sdplr(C, As, b, 10, **kw)
+    assert res["inner_engine"] == ENGINE_FAST
+    assert ga.ROWS.launches > rows and mk.K1.launches == k1
+    assert res["dual_passes"] > 0
+    assert res["primal_vio"] <= 1e-2 and res["rel_duality_gap"] <= 1e-2
+
+
+@pytest.mark.cuda
+def test_gather_gives_nan_for_an_index_outside_x(h100):
+    """An index outside X reads nothing and gives NaN; the rest agree."""
+    X = torch.randn((100, 10), device="cuda")
+    i = torch.tensor([0, 99, 100, -1, 2**40, 5], device="cuda")
+    got = ga.gather_rows(X, i)
+    bad = torch.tensor([False, False, True, True, True, False])
+    assert torch.isnan(got[bad.cuda()]).all()
+    assert torch.equal(got[~bad.cuda()], X[i[~bad.cuda()]])
+    w = torch.tensor([0, 9], device="cuda")
+    o = torch.tensor([[3, 12], [5, 10]], device="cuda")
+    gw = ga.gather_window(X, w, o, 10, 2)
+    assert torch.equal(gw[:3], X[torch.tensor([3, 12, 95], device="cuda")])
+    assert torch.isnan(gw[3]).all()
+    li = torch.zeros((2, 10), dtype=torch.int64)
+    li[0, 1], li[1, 0], li[1, 1] = 10, 9, -1
+    gl = ga.gather_lanes(X[:2].contiguous(), li.cuda())
+    assert gl[0, 0] == X[0, 0] and gl[1, 0] == X[1, 9]
+    assert torch.isnan(gl[0, 1]) and torch.isnan(gl[1, 1])

@@ -31,7 +31,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = (
         "import sys, sdplrplus_tpu_torch, sdplrplus_tpu_torch.convert, "
         "sdplrplus_tpu_torch.ops.megakernel, sdplrplus_tpu_torch.solver.outer, "
-        "sdplrplus_tpu_torch.solver.major\n"
+        "sdplrplus_tpu_torch.solver.major, sdplrplus_tpu_torch.probes, "
+        "sdplrplus_tpu_torch.ops.gather, sdplrplus_tpu_torch.ops.blocklanczos\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'sdplrplus_tpu' "
         "or m.startswith('sdplrplus_tpu.'))\n"
@@ -55,6 +56,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                 os.path.join(ROOT, "tests", "test_torch_cuda.py")]
     assert any(s.endswith("megakernel.cu") for s in sources)
     assert any(s.endswith("megakernel_armijo.cu") for s in sources)
+    assert any(s.endswith("gather.cu") for s in sources)
+    assert any(s.endswith("probes.py") for s in sources)
     for path in sources:
         with open(path) as f:
             for i, line in enumerate(f, 1):
