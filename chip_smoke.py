@@ -10,9 +10,11 @@ from the sources in the checkout and runs these phases, one line each:
   1. device   the card, its compute capability (must be 9.0), its name
               and power limit as nvidia-smi reports them, the TF32 flags;
   2. build    nvcc of csrc/megakernel.cu (K1), csrc/megakernel_armijo.cu
-              (K2) and csrc/gather.cu (the gather kernels), all started
-              together, in seconds, and what ptxas reports of their
-              registers and spills;
+              (K2), csrc/gather.cu (the gather kernels) and the two timing
+              builds of phase 8 (K2 and megakernel_armijo_twoloop.cu, K2's
+              design before the compact redesign, with -DK2_TIMING), all
+              started together, in seconds, and what ptxas reports of
+              their registers and spills;
   3. K1       the inner-loop megakernel against its plain PyTorch version
               on the same inputs on the card: float32 and float64, 1 and
               25 steps, the gtol exit and the ring round trip, on a
@@ -36,22 +38,30 @@ from the sources in the checkout and runs these phases, one line each:
               three channels per row, one wide and one low-rank
               constraint), relaxed MaxCut with native inequalities on the
               same graph (one channel, dense C) and μ-conductance on the
-              G22-shaped graph (n_pad 2048), all at rank 10;
+              G22-shaped graph (n_pad 2048), all at rank 10; in float64
+              the ring's Grams SᵀY and YᵀY that K2 returns too;
   7. mucond   the inequality path: sdplr(...) on μ-conductance on the
               G1-shaped graph in float32 (trace bound n·ub, the reference's
               experiment settings), with every launch count set to 0 just
               before and read just after; it must run on K2 with no K1
               launch, reach pinfeas and gap ≤ 1e-2, keep diag(X) inside its
               box and ⟨D, X⟩ = 1 to ptol, and land within 1e-2 of the JAX
-              package's objective;
+              package's objective; its gather_rows launches and ELL SpMMs
+              (the Lanczos passes), one launch per SpMM;
   8. times2   as 5 for K2 on the μ-conductance G1 state, with the torch
-              Armijo inner loop (fast-diagonal engine) beside it;
+              Armijo inner loop (fast-diagonal engine) beside it; then
+              K2's time per iteration by phase from the timing builds
+              (block 0's %globaltimer sums over a 2000-step launch, in
+              turns two-loop, compact, compact, two-loop), before the
+              redesign (the two-loop baseline) and after, with each
+              design's grid barriers per iteration (at most 3 after);
   9. gather   the three gather kernels of csrc/gather.cu against their
               plain versions, which must agree exactly (max |Δ| = 0):
               gather_rows at the SYN20K path's shapes (its tier-1 and
               tier-2 ELL column ids, X (20096, r) for r = 10 and 20, float32
               and float64, int64 and int32 ids) and at the probes' shapes (1
-              and 8 rows per index); gather_window at span/bucket (128, 512)
+              and 8 rows per index) and at the SpMM's one index vector
+              (tier-1 then tier-2 ids, DeviceProblem.ell_ids); gather_window at span/bucket (128, 512)
               and (1024, 512); gather_lanes on (8, 128) and (32, 1024) tiles
               and the (8·512, 1024) grid; then the probe entry points
               (sdplrplus_tpu_torch/probes.py) at the probes' shapes, with the
@@ -60,15 +70,17 @@ from the sources in the checkout and runs these phases, one line each:
               (synthetic_graph(20000, 16), 319,699 edges) in float32 with
               every launch count set to 0 just before and read just after;
               it must run the fast-diag-torch engine with no K1 or K2 launch
-              and gather_rows launches, take the block-Lanczos bound and no
+              and one gather_rows launch per ELL SpMM, take the
+              block-Lanczos bound and no
               scalar one, reach pinfeas and gap ≤ 1e-2, land within 1e-2 of
               the JAX package's objective, and not over-certify: its gap
               must be at least the float64 gap at its own multiplier
               (λ_min by scipy's eigsh on the host) less 2e-3;
  11. times3   CUDA-event times in turns (plain, kernel, library, library,
-              kernel, plain): gather_rows per SpMM (tier 1 and tier 2) at
-              the SYN20K shapes for r = 10 and 20 beside its bound, its plain
-              version and torch.index_select; the three kernels at the
+              kernel, plain): gather_rows per SpMM (one launch over tier 1
+              and tier 2) at the SYN20K shapes for r = 10 and 20 beside its
+              bound, its plain version X[idx] and torch.index_select, each
+              also per call from the host; the three kernels at the
               probes' shapes (N = 100,000, T = 2¹⁹, r = 16 and 32) with
               torch.index_select and torch.gather as library calls, each
               also timed per call from the host (launch cost included);
@@ -194,8 +206,9 @@ def main():
         built = kern.built
         return kern, built, time.time() - t0
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        builds = list(pool.map(build, (mk.K1, mk.K2, ga.ROWS)))
+    libs = (mk.K1, mk.K2, ga.ROWS, mk.K2_TIMED, mk.K2_TWOLOOP_TIMED)
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        builds = list(pool.map(build, libs))
     for kern, built, build_s in builds:
         ptxas = [ln.strip() for ln in built.log.splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -207,6 +220,14 @@ def main():
     def zero_counts():
         for kern in (mk.K1, mk.K2) + ga.KERNELS:
             kern.launches = 0
+
+    # ELL SpMMs, counted where spmm_C calls spmm_ell (phases 7 and 10)
+    spmms = [0]
+    real_spmm_ell = spmm_mod.spmm_ell
+
+    def counted_spmm_ell(*a, **k):
+        spmms[0] += 1
+        return real_spmm_ell(*a, **k)
 
     # ---- problems --------------------------------------------------------
     g800 = make_random_graph(800, 0.83, seed=1)
@@ -576,6 +597,12 @@ def main():
                         ref = np.max(np.abs(as_np(b_)))
                         assert np.max(np.abs(as_np(a) - as_np(b_))) \
                             <= 1e-5 * ref, (label, st)
+                    # the Grams K2 returns, held as the ring is
+                    for a, b_ in ((ck.lbfgs.sty, cp.lbfgs.sty),
+                                  (ck.lbfgs.yty, cp.lbfgs.yty)):
+                        ref = np.max(np.abs(as_np(b_)))
+                        assert np.max(np.abs(as_np(a) - as_np(b_))) \
+                            <= 1e-5 * ref, (label, st, "gram")
                     assert ck.lbfgs.head == cp.lbfgs.head
                 if st:
                     errs.append(float(np.max(np.abs(as_np(ck.R)
@@ -634,11 +661,15 @@ def main():
                prior_trace_bound=A.shape[0] * ub, dtype="float32", seed=0,
                printlevel=0)
     zero_counts()
+    spmms[0] = 0
+    spmm_mod.spmm_ell = counted_spmm_ell
     t0 = time.time()
     res = sdplr(C2, As2, b2, RANK, **kw2)
     torch.cuda.synchronize()
     cold2_s = time.time() - t0
+    spmm_mod.spmm_ell = real_spmm_ell
     launches2, k1_during = mk.K2.launches, mk.K1.launches
+    rows2, spmms2 = ga.ROWS.launches, spmms[0]
     obj, pinf, gap = res["obj"], res["primal_vio"], res["rel_duality_gap"]
     rel = abs(obj - JAX_MUCOND_G1_OBJ) / abs(JAX_MUCOND_G1_OBJ)
     X_diag = np.sum(res["R"] ** 2, axis=1)
@@ -654,9 +685,11 @@ def main():
         f"({res['dual_passes']} Lanczos passes), |obj - JAX|/|JAX| "
         f"{rel:.3e}, max(X_ii - ub) "
         f"{box[0]:.3e}, max(lb - X_ii) {box[1]:.3e}, <D,X> - 1 {vol:.3e}, "
+        f"gather_rows launches {rows2} for {spmms2} ELL SpMMs, "
         f"first solve {cold2_s:.3f} s")
     assert res["inner_engine"] == ENGINE_KERNEL, res["inner_engine"]
     assert launches2 > 0 and k1_during == 0, (launches2, k1_during)
+    assert rows2 == spmms2 > 0, (rows2, spmms2)
     assert np.isfinite(obj) and np.all(np.isfinite(res["R"]))
     assert res["R"].shape == (800, res["r"])
     assert pinf <= 1e-2 and gap <= 1e-2, (pinf, gap)
@@ -755,6 +788,31 @@ def main():
         f"warm solve {warm2_s:.3f} s ({res2['iter']} iterations), first "
         f"solve {cold2_s:.3f} s; nvidia-smi: {smi}")
 
+    # K2 by phase: the timing builds of the two-loop design (before the
+    # redesign) and of the compact one, on the same state, in turns; block
+    # 0's %globaltimer sums over one 2000-step launch, per iteration
+    designs = {"two-loop": mk.K2_TWOLOOP_TIMED, "compact": mk.K2_TIMED}
+    phase_runs = {w: [] for w in designs}
+    for who in ("two-loop", "compact", "compact", "two-loop"):
+        phase_runs[who].append(mk.k2_phase_times(designs[who], spec, base2,
+                                                 2000))
+    breakdown = {}
+    for who, runs in phase_runs.items():
+        per = {ph: statistics.median(r[0][ph] for r in runs)
+               for ph in runs[0][0]}
+        bars = {r[1] for r in runs}
+        assert len(bars) == 1, (who, bars)
+        breakdown[who] = dict(us_per_iteration=round(sum(per.values()), 3),
+                              barriers_per_iteration=bars.pop(),
+                              entry_barriers=runs[0][2],
+                              phases_us={k_: round(v, 3)
+                                         for k_, v in per.items()})
+    assert breakdown["compact"]["barriers_per_iteration"] <= 3, breakdown
+    say("k2phases", f"K2 per iteration by phase (timing builds, block 0's "
+        f"%globaltimer, 2000 steps, median of two turns each), "
+        f"mu-conductance G1 shapes float32: {json.dumps(breakdown)}; "
+        f"nvidia-smi: {smi}")
+
     # ---- 9. the gather kernels against their plain versions -------------
     n_syn = 20000
     A_syn = synthetic_graph(n_syn, 16)
@@ -783,7 +841,8 @@ def main():
             X = torch.randn((dp_syn.n_pad, r), generator=gen,
                             dtype=dt).to(dev)
             X[n_syn:] = 0.0          # the guaranteed-zero padding rows
-            for name, ids in (("tier 1", ell1), ("tier 2", ell2)):
+            for name, ids in (("tier 1", ell1), ("tier 2", ell2),
+                              ("tiers 1+2", dp_syn.ell_ids)):
                 for idt in (torch.int64, torch.int32):
                     i = ids.to(idt)
                     exact(ga.gather_rows(X, i), ga.gather_rows_plain(X, i),
@@ -852,7 +911,9 @@ def main():
           "P4 entry")
     say("gather", f"gather_rows = X[idx] exactly (max |Δ| 0) at SYN20K's "
         f"tier-1 ({ell1.numel()} ids) and tier-2 ({ell2.numel()} ids) "
-        f"columns for {', '.join(checked)}, int64 and int32 ids, and at "
+        f"columns and at the SpMM's one vector of both "
+        f"({dp_syn.ell_ids.numel()} ids) for {', '.join(checked)}, int64 "
+        f"and int32 ids, and at "
         f"the probes' shapes (X ({probes.N}, 16/32), T = {probes.T}, 1 and "
         f"8 rows per index); gather_window exact at span/bucket (128, 512) "
         f"and (1024, 512); gather_lanes exact on (8, 128), (32, 1024) and "
@@ -886,11 +947,15 @@ def main():
     kw3 = dict(ptol=1e-2, objtol=1e-2, prior_trace_bound=float(n_syn),
                dtype="float32", seed=0, printlevel=0)
     zero_counts()
+    spmms[0] = 0
+    spmm_mod.spmm_ell = counted_spmm_ell
     t0 = time.time()
     res3 = sdplr(C_syn, As_syn, b_syn, RANK, **kw3)
     torch.cuda.synchronize()
     syn_s = time.time() - t0
+    spmm_mod.spmm_ell = real_spmm_ell
     syn_launches = {k.name: k.launches for k in (mk.K1, mk.K2) + ga.KERNELS}
+    syn_spmms = spmms[0]
     major_mod.block_lanczos_min_eig = real_block
     major_mod.lanczos_alpha_beta_impl, \
         major_mod.lanczos_alpha_beta_reorth_impl = real_scalar
@@ -914,7 +979,8 @@ def main():
         else obj3
     gap64 = (obj_f - dual64) / min(abs(obj_f), abs(dual64))
     say("syn20k", f"SYN20K MaxCut n={n_syn} edges={A_syn.nnz // 2}: engine "
-        f"{res3['inner_engine']}, launches {syn_launches}, obj {obj3!r}, "
+        f"{res3['inner_engine']}, launches {syn_launches} for {syn_spmms} "
+        f"ELL SpMMs, obj {obj3!r}, "
         f"pinfeas {pinf3:.3e}, gap {gap3:.3e}, iterations {res3['iter']}, "
         f"majors {res3['majoriter']}, rank {res3['r']}, dual bounds "
         f"{res3['dual_bounds_computed']} with {res3['dual_passes']} block "
@@ -927,7 +993,8 @@ def main():
         f"({eigsh_s:.1f} s); solve {syn_s:.3f} s")
     assert res3["inner_engine"] == ENGINE_FAST, res3["inner_engine"]
     assert syn_launches["K1"] == syn_launches["K2"] == 0, syn_launches
-    assert syn_launches["gather_rows"] > 0, syn_launches
+    assert syn_launches["gather_rows"] == syn_spmms > 0, (syn_launches,
+                                                          syn_spmms)
     assert bounds["block"] > 0 and bounds["scalar"] == 0, bounds
     assert min(bounds["b"]) > 0 and res3["dual_passes"] > 0
     assert np.isfinite(obj3) and np.all(np.isfinite(res3["R"]))
@@ -941,22 +1008,19 @@ def main():
     for r in (10, 20):
         X = torch.randn((dp_syn.n_pad, r), generator=gen).to(dev)
         X[n_syn:] = 0.0
-        e1l, e2l = ell1, ell2
+        ids = dp_syn.ell_ids     # one SpMM's gather: tier 1, then tier 2
 
         def kern():
-            ga.gather_rows(X, e1l)
-            ga.gather_rows(X, e2l)
+            ga.gather_rows(X, ids)
 
         def plain():
-            ga.gather_rows_plain(X, e1l)
-            ga.gather_rows_plain(X, e2l)
+            ga.gather_rows_plain(X, ids)
 
         def lib():
-            torch.index_select(X, 0, e1l)
-            torch.index_select(X, 0, e2l)
+            torch.index_select(X, 0, ids)
 
         t = probes.time_in_turns(kern, plain, lib, reps=50)
-        nidx = e1l.numel() + e2l.numel()
+        nidx = ids.numel()
         # int64 ids once, X once, the output once (X, 0.8 MB at r = 10,
         # stays in L2, so a row gathered again is no HBM traffic)
         nbytes = probes.gather_bytes(nidx, dp_syn.n_pad * r, nidx * r,
@@ -1076,15 +1140,18 @@ def main():
         f"kernel, {statistics.median(swap['plain']['mucond_s']):.3f} s "
         f"with X[idx]; nvidia-smi: {smi}")
 
-    say("times3", f"gather_rows per SpMM at SYN20K shapes (tier 1 + tier 2, "
-        f"int64 ids, float32): {json.dumps(spmm_rows)}; at the probes' "
+    say("times3", f"gather_rows per SpMM at SYN20K shapes (one launch over "
+        f"tier 1 + tier 2, int64 ids, float32): {json.dumps(spmm_rows)}; at "
+        f"the probes' "
         f"shapes: {json.dumps(probe_rows)}; SYN20K solve {syn_s:.3f} s, "
         f"{res3['iter']} iterations, rank {res3['r']}, {bounds['block']} "
         f"block bounds with {bounds['passes']} passes (final rank: "
         f"{res3['dual_bounds_computed']} with {res3['dual_passes']}), "
         f"{syn_launches['gather_rows']} gather_rows launches "
         f"per solve ({syn_launches['gather_rows'] / max(res3['iter'], 1):.2f}"
-        f" per iteration); nvidia-smi: {smi}")
+        f" per iteration, {syn_spmms} ELL SpMMs); gather_rows launches on "
+        f"the mu-conductance solve {rows2} ({spmms2} SpMMs); nvidia-smi: "
+        f"{smi}")
 
     def probe_row(kernel):
         return next(p for p in probe_rows if p["kernel"] == kernel)

@@ -30,17 +30,23 @@
 // about 10.7 us at the card's 3.35 TB/s.
 //
 // What the design does about it:
-//   * one thread per output element over a flat grid-stride loop, so
-//     neighbouring threads write neighbouring addresses (the output
-//     stream is fully coalesced) and each warp loads one short row, or a
-//     few (r = 10: three rows per warp), as one contiguous segment. Rows
-//     of any width are taken, including widths that are not a multiple of
-//     4 (r = 10 and 20 on the solver's path, rows not 16-byte aligned), so
-//     loads are scalar; the index is a broadcast load within a row;
-//   * indices are read through the read-only path (__ldg) once per
-//     element of their row: repeated loads of one index hit L1;
-//   * flat offsets are 32-bit when the output fits, so the division that
-//     maps an element to its row is the cheap 32-bit one;
+//   * gather_rows moves whole rows with vector loads and stores as wide as
+//     the row allows: 16 B where the row's bytes and both arrays' addresses
+//     are multiples of 16, else 8 B, else 4 B (r = 10 float32 rows of 40 B
+//     move as 8 B vectors, r = 20 rows of 80 B as 16 B vectors). A row
+//     takes a sub-warp of vpr = row bytes / vector bytes lanes (five at
+//     r = 10 and 20), a warp 32 / vpr rows side by side, so a warp's store
+//     is one contiguous run of whole rows; each lane reads its row's id
+//     once (the lanes of one row share the load) and keeps four rows in
+//     flight (four ids, then four vector loads, then four stores) before
+//     its first store. The output, read once by the caller, is written
+//     with streaming stores (__stcs). The one division (lane by vpr) is
+//     done once per thread. Rows wider than 32 vectors take a warp each,
+//     its lanes stepping along the row. On the solver's path the SpMM
+//     gathers tier 1 and tier 2 in one launch (ops/spmm.py);
+//   * gather_window is the flat form: one thread per output element over
+//     a grid-stride loop, 32-bit offsets where they fit, the window's base
+//     read through the read-only path (__ldg);
 //   * gather_lanes stages one row of X in shared memory when it fits in
 //     48 KB and every lookup of that row reads shared memory; a longer
 //     row is read straight from global memory (L2).
@@ -74,20 +80,75 @@ __device__ __forceinline__ Off flat_stride() {
   return (Off)gridDim.x * (Off)blockDim.x;
 }
 
-template <typename T, typename I, typename Off>
+constexpr int ROWS_UNROLL = 4;   // rows in flight per lane
+
+// a vector V of NaNs of type T (V: int, int2 or int4, as raw bits)
+template <typename T, typename V>
+__device__ __forceinline__ V nan_vec() {
+  const int hi = sizeof(T) == 8 ? 0x7ff80000 : 0x7fc00000;
+  const int lo = sizeof(T) == 8 ? 0 : hi;
+  V v;
+  int* w = reinterpret_cast<int*>(&v);
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(V) / 4); ++i) w[i] = (i & 1) ? hi : lo;
+  return v;
+}
+
+// out row t (of rows = E*q) = X row idx[t / q]*q + t % q, moved as vpr
+// vectors V per row. Sub-warps of vpr lanes per row, rpw = 32 / vpr rows
+// per warp, ROWS_UNROLL row groups per warp in flight; vpr > 32: one row
+// per warp, lanes stepping along it.
+template <typename T, typename V, typename I, typename Off>
 __global__ void __launch_bounds__(NT)
-gather_rows_kernel(const T* __restrict__ X, const I* __restrict__ idx,
-                   T* __restrict__ out, Off total, Off r, Off q,
+gather_rows_kernel(const V* __restrict__ X, const I* __restrict__ idx,
+                   V* __restrict__ out, Off rows, int vpr, Off q,
                    Off n_rows) {
-  for (Off t = flat_start<Off>(); t < total; t += flat_stride<Off>()) {
-    const Off row = t / r;
-    const Off col = t - row * r;
-    const Off e = row / q;
-    const Off j = row - e * q;
-    // the range test in 64 bits, so no index wraps into range
-    const unsigned long long src =
-        (unsigned long long)(long long)__ldg(idx + e) * q + j;
-    out[t] = src < n_rows ? __ldg(X + (Off)src * r + col) : (T)NAN;
+  const int lane = threadIdx.x & 31;
+  const int rpw = vpr <= 32 ? 32 / vpr : 1;
+  const int rw = vpr <= 32 ? lane / vpr : 0;
+  const int c = vpr <= 32 ? lane - rw * vpr : lane;
+  const bool active = rw < rpw;
+  const Off gw = ((Off)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const Off tw = ((Off)gridDim.x * blockDim.x) >> 5;
+  const Off ngroups = (rows + rpw - 1) / rpw;
+  const V nanv = nan_vec<T, V>();
+  for (Off g0 = gw; g0 < ngroups; g0 += tw * ROWS_UNROLL) {
+    Off row[ROWS_UNROLL];
+    unsigned long long src[ROWS_UNROLL];
+#pragma unroll
+    for (int u = 0; u < ROWS_UNROLL; ++u) {
+      const Off g = g0 + u * tw;
+      row[u] = g * rpw + rw;
+      src[u] = ~0ULL;
+      if (active && g < ngroups && row[u] < rows) {
+        const Off e = q == 1 ? row[u] : row[u] / q;
+        // the range test in 64 bits, so no index wraps into range
+        src[u] = (unsigned long long)(long long)__ldg(idx + e) * q + (row[u] - e * q);
+      }
+    }
+    if (vpr <= 32) {
+      V val[ROWS_UNROLL];
+#pragma unroll
+      for (int u = 0; u < ROWS_UNROLL; ++u)
+        val[u] = src[u] < (unsigned long long)n_rows
+                     ? __ldg(X + (Off)src[u] * vpr + c) : nanv;
+#pragma unroll
+      for (int u = 0; u < ROWS_UNROLL; ++u) {
+        const Off g = g0 + u * tw;
+        if (active && g < ngroups && row[u] < rows)
+          __stcs(out + row[u] * vpr + c, val[u]);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < ROWS_UNROLL; ++u) {
+        const Off g = g0 + u * tw;
+        if (g >= ngroups || row[u] >= rows) continue;
+        const bool ok = src[u] < (unsigned long long)n_rows;
+        for (int cc = c; cc < vpr; cc += 32)
+          __stcs(out + row[u] * vpr + cc,
+                 ok ? __ldg(X + (Off)src[u] * vpr + cc) : nanv);
+      }
+    }
   }
 }
 
@@ -145,20 +206,39 @@ int grid_for(long long total) {
   return blocks < 1 ? 1 : (int)blocks;
 }
 
+template <typename T, typename V, typename I>
+int rows_launch_v(const void* X, long long n_rows, const void* idx, void* out,
+                  long long rows, int vpr, int q, cudaStream_t st) {
+  const int rpw = vpr <= 32 ? 32 / vpr : 1;
+  const long long groups = (rows + rpw - 1) / rpw;
+  const int grid = grid_for((groups + ROWS_UNROLL - 1) / ROWS_UNROLL * 32);
+  if (rows * vpr < (1LL << 31) && n_rows * vpr < (1LL << 31))
+    gather_rows_kernel<T, V, I, uint32_t><<<grid, NT, 0, st>>>(
+        (const V*)X, (const I*)idx, (V*)out, (uint32_t)rows, vpr,
+        (uint32_t)q, (uint32_t)n_rows);
+  else
+    gather_rows_kernel<T, V, I, uint64_t><<<grid, NT, 0, st>>>(
+        (const V*)X, (const I*)idx, (V*)out, (uint64_t)rows, vpr,
+        (uint64_t)q, (uint64_t)n_rows);
+  return (int)cudaGetLastError();
+}
+
+// the widest vector (16, 8 or 4 bytes) that divides the row and both
+// arrays' addresses
 template <typename T, typename I>
 int rows_launch(const void* X, long long n_rows, const void* idx, void* out,
                 long long E, int r, int q, cudaStream_t st) {
-  const long long total = E * q * r;
-  const int grid = grid_for(total);
-  if (total < (1LL << 31) && n_rows * r < (1LL << 31))
-    gather_rows_kernel<T, I, uint32_t><<<grid, NT, 0, st>>>(
-        (const T*)X, (const I*)idx, (T*)out, (uint32_t)total, (uint32_t)r,
-        (uint32_t)q, (uint32_t)n_rows);
-  else
-    gather_rows_kernel<T, I, uint64_t><<<grid, NT, 0, st>>>(
-        (const T*)X, (const I*)idx, (T*)out, (uint64_t)total, (uint64_t)r,
-        (uint64_t)q, (uint64_t)n_rows);
-  return (int)cudaGetLastError();
+  const long long row_bytes = (long long)r * sizeof(T);
+  const unsigned long long al = (unsigned long long)X | (unsigned long long)out;
+  const long long rows = E * q;
+  if (row_bytes % 16 == 0 && al % 16 == 0)
+    return rows_launch_v<T, int4, I>(X, n_rows, idx, out, rows,
+                                     (int)(row_bytes / 16), q, st);
+  if (row_bytes % 8 == 0 && al % 8 == 0)
+    return rows_launch_v<T, int2, I>(X, n_rows, idx, out, rows,
+                                     (int)(row_bytes / 8), q, st);
+  return rows_launch_v<T, int, I>(X, n_rows, idx, out, rows,
+                                  (int)(row_bytes / 4), q, st);
 }
 
 template <typename T, typename I>

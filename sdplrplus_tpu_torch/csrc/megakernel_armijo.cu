@@ -3,10 +3,11 @@
 //
 // Replaces the Pallas TPU kernel
 // sdplrplus_tpu/ops/megakernel.py::_make_kernel_armijo (launched by
-// _call_kernel_armijo). Same inputs and outputs as _call_kernel_armijo; the
-// Python wrapper is sdplrplus_tpu_torch/ops/megakernel.py::mega_chunk (K2
-// when spec.armijo), and mega_chunk_armijo_plain in the same module is this
-// loop written step by step in torch.
+// _call_kernel_armijo). Same inputs and outputs as _call_kernel_armijo, plus
+// the ring's Gram matrices S'Y and Y'Y; the Python wrapper is
+// sdplrplus_tpu_torch/ops/megakernel.py::mega_chunk (K2 when spec.armijo),
+// and mega_chunk_armijo_plain in the same module is this loop written step
+// by step in torch, with the same compact direction and Gram bookkeeping.
 //
 // The problem class: every constraint entry on the diagonal, J <= 4
 // diagonal channels per row (each with its own multiplier, weight, rhs and
@@ -18,58 +19,86 @@
 //
 // What it computes, per iteration (up to max_steps; exits on ||G|| <= gtol,
 // the step budget, or fprec stagnation):
-//   1. the two-loop L-BFGS direction over the k-slot (s, y) ring, with a -G
-//      fallback when it is not a descent direction; slope0 = <G, D>;
+//   1. the L-BFGS direction D = -H.G in the Byrd-Nocedal-Schnabel compact
+//      form (sdplrplus_tpu/solver/lbfgs.py::_direction_compact, the JAX
+//      package's default): with p = [S'g; Y'g] and the k x k Grams S'Y and
+//      Y'Y in age order, u = R^-1 S'g, v = D u + Y'Y u - Y'g,
+//      w = [R^-T v; -u] and D = -(g + [S Y] w); empty slots (rho = 0) are
+//      masked with a unit diagonal. D = -G when <G, D> is not negative or
+//      NaN; slope0 = <G, D> = -(g'g + w'p) from scalars;
 //   2. CDt = D.C, the one n_pad^2 product;
 //   3. p1, p2, per-column rv1 = 2 sum_r R.D and rv2 = sum_r D.D, the wide
 //      dots q1_w, q2_w and the low-rank contractions D.B;
 //   4. Armijo backtracking (c = 1e-4, at most 50 halvings from alpha_max):
-//      the sequential loop takes the first t in 0..50 with
-//      L(alpha_max 2^-t) <= L + c alpha slope0, else t = 50. L(alpha) is not
-//      linear in alpha (the min in lt), so a literal port pays one grid
-//      barrier per halving. Instead every block evaluates its slab's
-//      channel sum for all 51 candidates in the same pass as step 3 (the
-//      channel violations are column-local), the 51 partials ride the
-//      line-search barrier, and every block scans t in order afterwards.
-//      Halving is exact in binary, so this is the sequential loop's alpha;
-//   5. the algebraic commit (channel violations, wide and low-rank
-//      violations, obj, Rt, CRt += alpha.CDt, Q), the gradient, ||G||, the
-//      stagnation test and the ring push (skipped on stagnation).
-// At entry the kernel recomputes L, G and the violations from R.
+//      the first t in 0..50 with L(alpha_max 2^-t) <= L + c alpha slope0,
+//      else t = 50. Every block evaluates its slab's channel sum for all 51
+//      candidates (the channel violations are column-local), the partials
+//      ride the line-search barrier, and every block scans t in order;
+//   5. the algebraic commit (violations, obj, Rt, CRt += alpha.CDt, Q), the
+//      gradient, the stagnation test and the ring push (skipped on
+//      stagnation), with every partial the next direction needs: ||G||^2,
+//      S'g and Y'g over the ring after the push, and the pushed slot's row
+//      and column of S'Y and Y'Y (their [j, j] entry is y's, rho = 1/y's).
+// At entry the kernel recomputes L, G and the violations from R, and the
+// Grams from the ring (their partials ride the entry's gradient barrier).
 //
 // What bounds it. Per iteration D.C is 2.rp.n_pad^2 FP32 (or FP64) FLOPs:
 // 25.7 MFLOP at n_pad = 896 and rp = 16, about 0.38 us at the card's
-// 67 TFLOP/s; the 51-candidate pass adds about 51.J.n_pad.6 FLOPs. C is read
-// once per launch (it stays in the 50 MB L2). The real limit of this first
-// version is latency: every dot is a reduction across the whole grid, and
-// the iteration needs 2k + 3 grid-wide barriers (k for each half of the
-// two-loop recursion, then the descent test, the line-search dots with the
-// Armijo candidates, and the gradient norm), plus two at entry — the same
-// count as K1.
+// 67 TFLOP/s. The real limit is latency: every dot is a reduction across
+// the whole grid. The first, two-loop design paid 2k + 3 = 11 grid
+// barriers per iteration at k = 4, re-read the ring from L2 in every dot
+// and streamed C and D through shared memory in 64-wide synchronous
+// chunks (megakernel_armijo_twoloop.cu keeps it, for timing).
 //
-// What the design does about it (K1's skeleton, csrc/megakernel.cu):
-//   * one persistent cooperative grid (one block per SM) for the whole
-//     activation; all state stays on the card;
-//   * each block owns a slab of S = ceil(n_pad / #SMs) columns of Rt, G,
-//     CRt, D, the ring and the J channel rows; C is symmetric, so a block
-//     forms CDt[:, slab] from the contiguous rows C[slab, :];
-//   * every dot of a phase is batched behind one grid.sync(): each block
-//     writes its partials to a double-buffered global array, and after the
-//     barrier every block sums all partials in the same fixed order, so all
-//     scalars (the dots, alpha, the stagnation flag, the loop exit) are
-//     bitwise identical in every block. No atomics: a block that decided
-//     differently would wait at the next barrier forever;
+// What this design does about it:
+//   * 3 grid barriers per iteration, whatever k: (a) publish D, (b) the
+//     line-search and Armijo partials, (c) the gradient partials, which
+//     also carry every dot of the next direction (the compact form needs
+//     no dot of its own). After (c) thread 0 of every block solves the
+//     k x k triangular systems in the same fixed order, so every scalar (the
+//     dots, alpha, the stagnation flag, the loop exit) is bitwise identical
+//     in every block, as before. No atomics: a block that decided
+//     differently would wait at the next barrier forever. The optional
+//     step to 2 barriers (C.D from C.G and rings of C.s and C.y slabs) is
+//     not taken: its recurrences change the float32 trajectory;
+//   * C's column slab stays in shared memory for the whole launch where it
+//     fits (float32 up to n_pad 2048, float64 up to n_pad 896); elsewhere
+//     the product reads it from L2 (__ldg) beside D. No element of D is
+//     used twice within a block, so D goes straight from L2 into
+//     registers, eight 64-column steps at a time (all their loads issued
+//     before the first FMA), instead of through a shared-memory copy;
+//   * the product keeps a 4 x 8 register tile per thread (4 rows of D
+//     times 8 columns of C) over a 64-lane split of the n axis, and sums
+//     the 32 values of each warp's tile in 31 shuffles (recursive
+//     halving), not 32 x 5;
+//   * the ring's slab of s and y, G (current and next) and D live in
+//     shared memory for the whole launch; the ring goes back to the
+//     caller's arrays at exit;
+//   * block partials are stored slot-major, so the 32 lanes that sum one
+//     slot read consecutive addresses, and each lane issues the loads of
+//     eight slots at once before summing;
+//   * after the line-search barrier the 51 Armijo candidates are
+//     evaluated one per thread and the first that passes is found by a
+//     warp ballot, not by a scan in every thread; one warp per low-rank
+//     term forms its products;
+//   * the k x k triangular solves run in registers (k <= 8; unrolled for
+//     each k);
 //   * plain FP32 (FP64) FMAs, no tensor cores, so no dot is ever TF32.
+// Tried on the card and not kept, each slower than this form (PERF.md): a
+// ticket barrier whose last block alone sums the partials and publishes
+// the totals; each block starting the product at another 64-column step;
+// the product as a function of its own (__noinline__); blocks starting
+// grid_totals at another slot.
 //
 // Data written by one block and read by another inside the launch (the
-// partials, the gradient buffers, q) is written with __stcg and read with
-// __ldcg, which bypass the non-coherent L1.
+// partials, D) is written with __stcg and read with __ldcg, which bypass
+// the non-coherent L1. The caller's s and y rings are updated in place.
 //
-// The reductions and the D.C product are K1's, repeated here: each kernel
-// builds from one self-contained source, whose hash names its library, and
-// K1's source stays as it was measured.
-//
-// The caller's s and y rings are updated in place.
+// Timing build (-DK2_TIMING, chip_smoke.py phase 8): thread 0 of block 0
+// adds the %globaltimer time between consecutive stamps to its phase's sum
+// and counts the grid barriers; at exit it writes the sums (ns), the
+// barrier count and the entry barriers to tbuf (int64). k2_phases() names
+// the phases. Without the macro the stamps compile to nothing.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -83,20 +112,22 @@ namespace {
 
 constexpr int NT = 256;          // threads per block
 constexpr int NW = NT / 32;      // warps per block
-constexpr int IC = 64;           // n-axis chunk of the D.C product
-constexpr int OPT = 4;           // D.C outputs per thread at most
+constexpr int IC = 64;           // n-axis granule: the product's i-lanes
 constexpr int MAX_RP = 64;
-constexpr int MAX_S = 16;        // columns per block
+constexpr int MAX_S = 16;        // columns per block (the slab stride)
 constexpr int MAX_K = 16;
 constexpr int MAX_LR = 4;        // low-rank terms (MAX_LR_TERMS)
 constexpr int MAX_LRC = 8;       // low-rank columns over all terms
 constexpr int MAX_J = 4;         // diagonal channels per row
 constexpr int MAX_W = 2;         // wide constraints
 constexpr int N_CAND = 51;       // Armijo candidates alpha_max 2^-t
-constexpr int P_QW1 = 2;         // partial slots: p1, p2, q1_w, q2_w, cands
+constexpr int P_QW1 = 2;         // line-search slots: p1, p2, q1_w, q2_w, cands
 constexpr int P_QW2 = P_QW1 + MAX_W;
 constexpr int P_CAND = P_QW2 + MAX_W;
 constexpr int N_LS = P_CAND + N_CAND;
+constexpr int MAX_NBLK = 160;    // grid_totals reads 5 partials per lane
+constexpr int DB = 8;            // the product's 64-column steps per load batch
+constexpr int SMEM_MAX = 232448; // a block's shared memory on sm_90
 
 }  // namespace
 
@@ -116,9 +147,10 @@ struct K2Args {
   void *s_ring, *y_ring;
   const void *lrB, *lrBdt, *lrd;
   void *Rt_out, *G_out, *vio_out, *oscal, *work;
+  void *tbuf;     // timing builds: per-phase ns, barriers (int64)
   void *stream;
   // filled in by k2_plan
-  int S, nblk, smem_bytes, sms, blocks_per_sm;
+  int S, nblk, smem_bytes, sms, blocks_per_sm, c_resident;
   long long work_elems;
 };
 
@@ -128,7 +160,7 @@ namespace {
 
 template <typename T>
 struct Params {
-  int n, rp, k, use_hist, n_lr, n_lc, lrc, J, n_w, S, nblk, npart;
+  int n, rp, k, use_hist, n_lr, n_lc, lrc, J, n_w, S, nblk, npart, c_res, cp;
   int lr_off[MAX_LR + 1];
   int lr_cons[MAX_LR];
   T gscale, alpha_max;
@@ -136,14 +168,68 @@ struct Params {
   T *s_ring, *y_ring;
   const T *lrB, *lrBdt, *lrd;
   T *Rt_out, *G_out, *vio_out, *oscal;
-  T *gbuf;   // 2 x (rp, n): current and next gradient
-  T *qbuf;   // (rp, n): two-loop vector q, published for the D.C product
-  T *part;   // 2 x nblk x npart: double-buffered block partials
+  T *dbuf;   // (rp, n): the direction, published for the D.C product
+  T *part;   // 2 x npart x nblk: double-buffered block partials, slot-major
+  long long *tbuf;
 };
 
-int npart_for(int rp, int lrc) { return N_LS + rp * lrc; }
+// partial slots of the widest phase: the line search, the entry's Grams,
+// or the gradient with a push
+int npart_for(int rp, int k, int lrc) {
+  int a = N_LS + rp * lrc, b = 1 + 2 * k + 2 * k * k, c = 1 + 5 * k;
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
 
-// ---- block- and grid-level reductions (fixed order) ----------------------
+// C slab rows: the product's column groups of 8
+int c_rows(int S) { return S <= 8 ? 8 : 16; }
+
+// shared memory of one block, in elements (ops/megakernel.py
+// k2_smem_bytes mirrors it)
+size_t smem_elems(int n, int rp, int k, int lrc, int S, int resident) {
+  return (size_t)(resident ? c_rows(S) * n : 0) +
+         (size_t)(6 + 2 * k) * rp * MAX_S + 5 * MAX_J * MAX_S +
+         (3 + MAX_W) * MAX_S + N_CAND + 8 * 32 + npart_for(rp, k, lrc) +
+         rp * lrc + 2 * MAX_S * MAX_LRC + k + 2 * k * k + 2 * k + 2 +
+         N_CAND + 2 * MAX_LR + 2;
+}
+
+// the timing build's phases, in tbuf order
+constexpr int K2_NPH = 10;
+const char* const K2_PHASE_NAMES =
+    "direction,d_barrier,dc,linesearch,ls_barrier,ls_totals,armijo,"
+    "commit_gradient,grad_barrier,grad_totals";
+enum {
+  PH_DIR, PH_D_BAR, PH_DC, PH_LS, PH_LS_BAR, PH_LS_TOT, PH_ARMIJO, PH_GRAD,
+  PH_GRAD_BAR, PH_GRAD_TOT
+};
+
+#ifdef K2_TIMING
+__device__ __forceinline__ unsigned long long k2_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define K2_STAMP(ph)                    \
+  do {                                  \
+    if (tmr) {                          \
+      unsigned long long t_ = k2_now(); \
+      tacc[ph] += t_ - tprev;           \
+      tprev = t_;                       \
+    }                                   \
+  } while (0)
+#define K2_SYNC()  \
+  do {             \
+    grid.sync();   \
+    ++nbar;        \
+  } while (0)
+#else
+#define K2_STAMP(ph) \
+  do {               \
+  } while (0)
+#define K2_SYNC() grid.sync()
+#endif
+
+// ---- reductions (fixed order) ----------------------------------------------
 
 template <typename T>
 __device__ T warp_sum(T v) {
@@ -152,28 +238,44 @@ __device__ T warp_sum(T v) {
   return v;
 }
 
+// sum of a[e] * b[e] over the valid entries of two (rp, MAX_S) slab arrays
+// (columns j < ns), by one warp; every lane returns the same value
 template <typename T>
-__device__ T block_sum(T v, T* red) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
+__device__ T warp_slab_dot(const T* a, const T* b, int nel, int ns) {
+  const int lane = threadIdx.x & 31;
   T s = 0;
-  for (int i = 0; i < NW; ++i) s += red[i];
-  return s;
+  for (int e = lane; e < nel; e += 32)
+    if ((e & (MAX_S - 1)) < ns) s += a[e] * b[e];
+  return warp_sum(s);
 }
 
-// tot[p] = sum over blocks of part[b][p], p < np; the same order in every
-// block. Ends with __syncthreads.
+// tot[p] = sum over blocks of part[p][b], p < np; the same order in every
+// block (lane l adds blocks l, l + 32, ... in turn, then a butterfly).
+// Each warp issues the loads of eight slots before it sums any.
+// Ends with __syncthreads.
 template <typename T>
-__device__ void grid_totals(const T* part, int nblk, int npart, int np, T* tot) {
+__device__ void grid_totals(const T* part, int nblk, int np, T* tot) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  for (int p = wid; p < np; p += NW) {
-    T s = 0;
-    for (int b = lane; b < nblk; b += 32) s += __ldcg(part + (size_t)b * npart + p);
-    s = warp_sum(s);
-    if (lane == 0) tot[p] = s;
+  constexpr int U = 8;  // slots per warp turn: 40 loads in flight per lane
+  for (int p0 = wid; p0 < np; p0 += U * NW) {
+    T s[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = p0 + u * NW;
+      T a = 0;
+#pragma unroll
+      for (int i = 0; i < MAX_NBLK / 32; ++i) {
+        const int b = lane + 32 * i;
+        if (p < np && b < nblk) a += __ldcg(part + (size_t)p * nblk + b);
+      }
+      s[u] = a;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const T v = warp_sum(s[u]);
+      const int p = p0 + u * NW;
+      if (lane == 0 && p < np) tot[p] = v;
+    }
   }
   __syncthreads();
 }
@@ -184,53 +286,174 @@ __device__ T tmin(T ub, T x) {
   return (x < ub || x != x) ? x : ub;
 }
 
-// ---- CDt[:, slab] = (sgn . src) @ C[:, slab]  (C symmetric) ---------------
+// The 32 values v[0..31] of every lane summed over the warp's lanes by
+// recursive halving: afterwards v[0] of lane l holds the sum of value l.
+template <typename T>
+__device__ __forceinline__ void halve32(T* v, int lane) {
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) {
+    const bool up = (lane & o) != 0;
+#pragma unroll
+    for (int q = 0; q < o; ++q) {
+      const T send = up ? v[q] : v[q + o];
+      const T keep = up ? v[q + o] : v[q];
+      v[q] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+}
+
+// ---- out[r][j] = sgn . sum_i src[r][i] C[c0 + j][i]  (C symmetric) --------
+// src (rp, n) in global memory; out a (rp, MAX_S) slab array, j < ns.
+// Warp w takes rows 4 (w & 3) .. +3 of each 16-row pass and the i-lanes
+// il = lane + 32 (w >> 2), i = il + 64 c; each thread keeps a 4 x 8 tile
+// (8 slab columns per column group) and loads D in batches of DB steps.
+template <typename T>
+__device__ void cd_product(int n, int rp, const T* C, int c_res,
+                           const T* src, T sgn, int c0, int ns, const T* Cs,
+                           T* red, T* out) {
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int rg = wid & 3, ih = wid >> 2;
+  const int il = lane + 32 * ih;
+  const int ncg = (ns + 7) >> 3;
+  const int nst = n / IC;
+  for (int r0 = 0; r0 < rp; r0 += 16) {
+    const int rb = r0 + 4 * rg;  // rp % 8 == 0: rows rb..rb+3 all live or not
+    for (int cgi = 0; cgi < ncg; ++cgi) {
+      T acc[32];
+#pragma unroll
+      for (int u = 0; u < 32; ++u) acc[u] = 0;
+      if (rb < rp) {
+        const T* d0 = src + (size_t)rb * n + il;
+        const int jb = cgi * 8;
+        const T* cj = c_res ? Cs + (size_t)jb * n + il
+                            : C + (size_t)(c0 + jb) * n + il;
+        for (int st0 = 0; st0 < nst; st0 += DB) {
+          // the batch's D values first: DB x 4 loads in flight per lane
+          T dv[DB][4];
+#pragma unroll
+          for (int s = 0; s < DB; ++s) {
+            const int i = (st0 + s) * IC;
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+              dv[s][a] = st0 + s < nst ? __ldcg(d0 + (size_t)a * n + i) : T(0);
+          }
+#pragma unroll
+          for (int s = 0; s < DB; ++s) {
+            if (st0 + s >= nst) break;
+            const int i = (st0 + s) * IC;
+            T cv[8];
+#pragma unroll
+            for (int b = 0; b < 8; ++b)
+              cv[b] = c_res ? cj[(size_t)b * n + i]
+                            : (jb + b < ns ? __ldg(cj + (size_t)b * n + i) : T(0));
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+#pragma unroll
+              for (int b = 0; b < 8; ++b) acc[a * 8 + b] += dv[s][a] * cv[b];
+          }
+        }
+      }
+      halve32(acc, lane);
+      __syncthreads();  // the previous pass has read red
+      red[(ih * 4 + rg) * 32 + lane] = acc[0];
+      __syncthreads();
+      if (tid < 128) {
+        const int g = tid >> 5, l = tid & 31;
+        const int r = r0 + 4 * g + (l >> 3), j = cgi * 8 + (l & 7);
+        if (r < rp && j < ns)
+          out[r * MAX_S + j] = sgn * (red[g * 32 + l] + red[(4 + g) * 32 + l]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// ---- the compact direction's scalars (one thread) --------------------------
+// w (2k) from p = [S'g; Y'g], the Grams and rho; slots in age order
+// a = 0 (oldest) .. k-1 (newest): slot (head + 1 + a) % k. KK > 0: k == KK,
+// every loop unrolled and the k x k system in registers; KK == 0: any
+// k <= MAX_K, in local memory.
+template <typename T, int KK>
+__device__ void compact_w(int k_, int head, const T* rho, const T* STY,
+                          const T* YTY, const T* p, T* w) {
+  constexpr int KM = KK > 0 ? KK : MAX_K;
+  const int k = KK > 0 ? KK : k_;
+  T Rm[KM][KM], u[KM], w1[KM];
+  int pm[KM];
+  bool em[KM];
+#pragma unroll
+  for (int a = 0; a < KM; ++a) {
+    if (a >= k) break;
+    pm[a] = (head + 1 + a) % k;
+    em[a] = rho[pm[a]] == T(0);
+  }
+#pragma unroll
+  for (int a = 0; a < KM; ++a) {
+    if (a >= k) break;
+#pragma unroll
+    for (int b = 0; b < KM; ++b) {
+      if (b >= k) break;
+      const bool live = !(em[a] || em[b]);
+      T v = (b >= a && live) ? STY[pm[a] * k + pm[b]] : T(0);
+      if (a == b && em[a]) v = v + T(1);
+      Rm[a][b] = v;
+    }
+  }
+  // u = R^-1 S'g (back substitution)
+#pragma unroll
+  for (int a = KM - 1; a >= 0; --a) {
+    if (a >= k) continue;
+    T s = p[pm[a]];
+#pragma unroll
+    for (int b = a + 1; b < KM; ++b) {
+      if (b >= k) break;
+      s = s - Rm[a][b] * u[b];
+    }
+    u[a] = s / Rm[a][a];
+  }
+  // v = D u + Y'Y u - Y'g, then w1 = R^-T v (forward substitution)
+#pragma unroll
+  for (int a = 0; a < KM; ++a) {
+    if (a >= k) break;
+    const bool la = !em[a];
+    T v = (la ? STY[pm[a] * k + pm[a]] : T(0)) * u[a];
+#pragma unroll
+    for (int b = 0; b < KM; ++b) {
+      if (b >= k) break;
+      const bool live = la && !em[b];
+      v = v + (live ? YTY[pm[a] * k + pm[b]] : T(0)) * u[b];
+    }
+    v = v - p[k + pm[a]];
+    T s = v;
+#pragma unroll
+    for (int b = 0; b < KM; ++b) {
+      if (b >= a) break;
+      s = s - Rm[b][a] * w1[b];
+    }
+    w1[a] = s / Rm[a][a];
+  }
+#pragma unroll
+  for (int a = 0; a < KM; ++a) {
+    if (a >= k) break;
+    w[pm[a]] = w1[a];
+    w[k + pm[a]] = -u[a];
+  }
+}
 
 template <typename T>
-__device__ void cd_product(const Params<T>& P, const T* src, T sgn, int c0,
-                           int ns, T* Ds, T* Cs, T* red, T* out) {
-  const int tid = threadIdx.x, n = P.n, rp = P.rp;
-  const int no = rp * ns;                        // outputs (r, j)
-  int tpo = NT / no;                             // threads per output
-  if (tpo < 1) tpo = 1;
-  const int items = no * tpo;
-  T acc[OPT];
-  for (int u = 0; u < OPT; ++u) acc[u] = 0;
-  for (int i0 = 0; i0 < n; i0 += IC) {
-    __syncthreads();
-    for (int x = tid; x < rp * IC; x += NT) {
-      int r = x / IC, ii = x % IC;
-      Ds[r * (IC + 1) + ii] = __ldcg(src + (size_t)r * n + i0 + ii);
-    }
-    for (int x = tid; x < ns * IC; x += NT) {
-      int j = x / IC, ii = x % IC;
-      Cs[j * (IC + 1) + ii] = P.C[(size_t)(c0 + j) * n + i0 + ii];
-    }
-    __syncthreads();
-    for (int u = 0; u < OPT; ++u) {
-      int it = tid + u * NT;
-      if (it >= items) break;
-      int o = it / tpo, sub = it % tpo;
-      int r = o / ns, j = o % ns;
-      const T* dr = Ds + r * (IC + 1);
-      const T* cj = Cs + j * (IC + 1);
-      T s = acc[u];
-      for (int ii = sub; ii < IC; ii += tpo) s += dr[ii] * cj[ii];
-      acc[u] = s;
-    }
+__device__ void compact_w_any(int k, int head, const T* rho, const T* STY,
+                              const T* YTY, const T* p, T* w) {
+  switch (k) {
+    case 1: compact_w<T, 1>(k, head, rho, STY, YTY, p, w); break;
+    case 2: compact_w<T, 2>(k, head, rho, STY, YTY, p, w); break;
+    case 3: compact_w<T, 3>(k, head, rho, STY, YTY, p, w); break;
+    case 4: compact_w<T, 4>(k, head, rho, STY, YTY, p, w); break;
+    case 5: compact_w<T, 5>(k, head, rho, STY, YTY, p, w); break;
+    case 6: compact_w<T, 6>(k, head, rho, STY, YTY, p, w); break;
+    case 7: compact_w<T, 7>(k, head, rho, STY, YTY, p, w); break;
+    case 8: compact_w<T, 8>(k, head, rho, STY, YTY, p, w); break;
+    default: compact_w<T, 0>(k, head, rho, STY, YTY, p, w);
   }
-  __syncthreads();
-  for (int u = 0; u < OPT; ++u) {
-    int it = tid + u * NT;
-    if (it < items) red[it] = acc[u];
-  }
-  __syncthreads();
-  for (int o = tid; o < no; o += NT) {
-    T s = 0;
-    for (int sub = 0; sub < tpo; ++sub) s += red[o * tpo + sub];
-    out[(o / ns) * MAX_S + (o % ns)] = sgn * s;
-  }
-  __syncthreads();
 }
 
 // ---- the kernel -----------------------------------------------------------
@@ -246,18 +469,26 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
   const int J = P.J, n_w = P.n_w;
   const int c0 = blk * P.S;
   const int ns = min(P.S, n - c0);               // >= 1 by construction
-  const int ne = rp * ns;                        // owned elements
+  const int nel = rp * MAX_S;                    // slab array entries
   const int nch = J * ns;                        // owned channel entries
+  const int nblk = P.nblk;
+#ifdef K2_TIMING
+  const bool tmr = blk == 0 && tid == 0;
+  unsigned long long tacc[K2_NPH] = {}, tprev = 0;
+  long long nbar = 0, nbar_entry = 0;
+#endif
 
-  // shared-memory carve-up; slab arrays are (rows, MAX_S) row-major
-  const int SL = MAX_RP * MAX_S;
+  // shared-memory carve-up (smem_elems); slab arrays are (rows, MAX_S)
+  T* Cs = sm;                                    // cp x n C slab, if resident
+  T* Rt_s = Cs + (P.c_res ? (size_t)P.cp * n : 0);
+  T* CRt_s = Rt_s + nel;
+  T* CDt_s = CRt_s + nel;
+  T* d_s = CDt_s + nel;
+  T* g_s = d_s + nel;                            // 2 x (rp, MAX_S)
+  T* sr_s = g_s + 2 * nel;                       // k x (rp, MAX_S) ring
+  T* yr_s = sr_s + (size_t)k * nel;
   const int CH = MAX_J * MAX_S;
-  T* Rt_s = sm;
-  T* CRt_s = Rt_s + SL;
-  T* CDt_s = CRt_s + SL;
-  T* d_s = CDt_s + SL;
-  T* q_s = d_s + SL;
-  T* lam_s = q_s + SL;                           // J channel rows
+  T* lam_s = yr_s + (size_t)k * nel;             // J channel rows
   T* w_s = lam_s + CH;
   T* b_s = w_s + CH;
   T* ub_s = b_s + CH;
@@ -267,15 +498,19 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
   T* mu_s = rv2_s + MAX_S;                       // gradient row multiplier
   T* ww_s = mu_s + MAX_S;                        // MAX_W wide weight rows
   T* cand = ww_s + MAX_W * MAX_S;                // N_CAND candidate steps
-  T* Ds = cand + N_CAND;                         // rp x (IC+1)
-  T* Cs = Ds + MAX_RP * (IC + 1);                // S x (IC+1)
-  T* red = Cs + MAX_S * (IC + 1);                // OPT*NT
-  T* tot = red + OPT * NT;                       // npart
-  T* Q = tot + N_LS + MAX_RP * MAX_LRC;          // rp x lrc (identical in all blocks)
-  T* Qd = Q + MAX_RP * MAX_LRC;
-  T* Bs = Qd + MAX_RP * MAX_LRC;                 // S x lrc slab of B
+  T* red = cand + N_CAND;                        // 8 x 32 product tiles
+  T* tot = red + 8 * 32;                         // npart
+  T* Q = tot + np;                               // rp x lrc (identical in all blocks)
+  T* Bs = Q + rp * lrc;                          // S x lrc slab of B
   T* Bdts = Bs + MAX_S * MAX_LRC;                // lrc x S slab of Bdt
   T* rho = Bdts + MAX_LRC * MAX_S;               // k
+  T* STY = rho + k;                              // k x k, slot order
+  T* YTY = STY + k * k;
+  T* wv = YTY + k * k;                           // 2k compact coefficients
+  T* slope_s = wv + 2 * k;                       // slope0, descent-ok flag
+  T* Lc = slope_s + 2;                           // L at each Armijo candidate
+  T* plr = Lc + N_CAND;                          // 2 x MAX_LR low-rank products
+  unsigned* passm = reinterpret_cast<unsigned*>(plr + 2 * MAX_LR);  // 2 ballots
 
   const T sigma = P.scal[0];
   const T cur_gtol = P.scal[1];
@@ -290,10 +525,27 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
   const T half = T(0.5), two = T(2), two_sigma = T(2) * sigma;
   const T c_armijo = T(1e-4);
 
-  // ---- entry: slab state, C.R, Q = R.B ----------------------------------
-  for (int e = tid; e < ne; e += NT) {
-    int r = e / ns, j = e % ns;
-    Rt_s[r * MAX_S + j] = P.Rt_in[(size_t)r * n + c0 + j];
+  // ---- entry: slab state, ring, C slab, C.R, Q = R.B ---------------------
+  for (int e = tid; e < (6 + 2 * k) * nel + 5 * CH + (3 + MAX_W) * MAX_S; e += NT)
+    Rt_s[e] = 0;                                 // padded columns stay 0
+  if (P.c_res) {
+    const int cp = P.cp;
+    for (size_t x = tid; x < (size_t)cp * n; x += NT) {
+      const int j = (int)(x / n);
+      Cs[x] = j < ns ? P.C[(size_t)c0 * n + x] : T(0);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < nel; e += NT) {
+    const int r = e >> 4, j = e & (MAX_S - 1);
+    if (j < ns) {
+      const size_t g = (size_t)r * n + c0 + j;
+      Rt_s[e] = P.Rt_in[g];
+      for (int i = 0; i < k; ++i) {
+        sr_s[i * nel + e] = P.s_ring[(size_t)i * rp * n + g];
+        yr_s[i * nel + e] = P.y_ring[(size_t)i * rp * n + g];
+      }
+    }
   }
   for (int x = tid; x < nch; x += NT) {
     int ch = x / ns, j = x % ns;
@@ -320,23 +572,27 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
       a = a * half;
     }
   }
-  cd_product(P, P.Rt_in, T(1), c0, ns, Ds, Cs, red, CRt_s);
+  __syncthreads();
+  cd_product(n, rp, P.C, P.c_res, P.Rt_in, T(1), c0, ns, Cs, red, CRt_s);
 
-  int ph = 0;  // grid barriers passed: selects the partial buffer
-  auto pbuf = [&](int phase) { return P.part + (size_t)(phase & 1) * P.nblk * np; };
+  int ph = 0;  // partial phases passed: selects the partial buffer
+  auto slot = [&](int p) -> T* {
+    return P.part + ((size_t)(ph & 1) * np + p) * nblk + blk;
+  };
+  const int lane = tid & 31, wid = tid >> 5;
+  // the totals of the partial phase just passed (npu slots) into tot
+  auto totals = [&](int npu) {
+    grid_totals(P.part + (size_t)(ph & 1) * np * nblk, nblk, npu, tot);
+    ++ph;
+  };
 
   // per-column channel violations, the channel sharp-AL sum, wide dots
-  T* mypart = pbuf(ph) + (size_t)blk * np;
   {
-    T o = 0;
-    for (int e = tid; e < ne; e += NT) {
-      int r = e / ns, j = e % ns;
-      o += Rt_s[r * MAX_S + j] * CRt_s[r * MAX_S + j];
-    }
-    o = block_sum(o, red);
-    if (tid == 0) {
+    T o = warp_slab_dot(Rt_s, CRt_s, nel, ns);
+    if (wid == 0 && lane == 0) __stcg(slot(0), o);
+    if (tid == 32) {
       T sh = 0;
-      T wv[MAX_W] = {0, 0};
+      T wv_[MAX_W] = {0, 0};
       for (int j = 0; j < ns; ++j) {
         T rv = 0;
         for (int r = 0; r < rp; ++r) rv += Rt_s[r * MAX_S + j] * Rt_s[r * MAX_S + j];
@@ -347,22 +603,20 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
           T lt = tmin(ub_s[x], lam_s[x] - sigma * v);
           sh += lt * lt - lam_s[x] * lam_s[x];
         }
-        for (int i = 0; i < n_w; ++i) wv[i] += ww_s[i * MAX_S + j] * rv;
+        for (int i = 0; i < n_w; ++i) wv_[i] += ww_s[i * MAX_S + j] * rv;
       }
-      mypart[0] = o;
-      mypart[1] = sh;
-      for (int i = 0; i < MAX_W; ++i) mypart[P_QW1 + i] = wv[i];
+      __stcg(slot(1), sh);
+      for (int i = 0; i < MAX_W; ++i) __stcg(slot(P_QW1 + i), wv_[i]);
     }
     for (int x = tid; x < rp * lrc; x += NT) {
       int r = x / lrc, c = x % lrc;
       T s = 0;
       for (int j = 0; j < ns; ++j) s += Rt_s[r * MAX_S + j] * Bs[j * MAX_LRC + c];
-      mypart[N_LS + x] = s;
+      __stcg(slot(N_LS + x), s);
     }
   }
-  grid.sync();
-  grid_totals(pbuf(ph), P.nblk, np, N_LS + rp * lrc, tot);
-  ++ph;
+  K2_SYNC();
+  totals(N_LS + rp * lrc);
   for (int x = tid; x < rp * lrc; x += NT) Q[x] = tot[N_LS + x];
   __syncthreads();
 
@@ -401,8 +655,9 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
   T L_val = obj + tot[1] / two_sigma;
   L_val = L_val + rest_of(vio_w, vio_lr);
 
-  // gradient of the slab into Gdst: 2 (CRt + mu.Rt) + low-rank, with the
-  // row multiplier mu = sum_ch W.y_ch + sum_i y_w[i] WW_i, y = -lt
+  // gradient of the slab into Gdst (a slab array): 2 (CRt + mu.Rt) +
+  // low-rank, with the row multiplier mu = sum_ch W.y_ch + sum_i y_w[i] WW_i,
+  // y = -lt
   int cur = 0;
   auto gradient = [&](T* Gdst) {
     for (int j = tid; j < ns; j += NT) {
@@ -416,9 +671,10 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
       mu_s[j] = mu;
     }
     __syncthreads();
-    for (int e = tid; e < ne; e += NT) {
-      int r = e / ns, j = e % ns;
-      T g = two * (CRt_s[r * MAX_S + j] + mu_s[j] * Rt_s[r * MAX_S + j]);
+    for (int e = tid; e < nel; e += NT) {
+      const int r = e >> 4, j = e & (MAX_S - 1);
+      if (j >= ns) continue;
+      T g = two * (CRt_s[e] + mu_s[j] * Rt_s[e]);
       for (int t = 0; t < P.n_lr; ++t) {
         int i = P.lr_cons[t];
         T y_t = i < 0 ? T(1) : -(lam_lc[i] - sigma * vio_lr[i]);
@@ -427,118 +683,103 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
           s += Q[r * lrc + c] * Bdts[c * MAX_S + j];
         g = g + two * y_t * s;
       }
-      __stcg(Gdst + (size_t)r * n + c0 + j, g);
+      Gdst[e] = g;
     }
+    __syncthreads();
   };
-  gradient(P.gbuf);
+  gradient(g_s);
+
+  // ||G||^2, S'g, Y'g and the Grams from the ring: one value per warp turn
   {
-    T gg = 0;
-    for (int e = tid; e < ne; e += NT) {
-      int r = e / ns, j = e % ns;
-      T g = __ldcg(P.gbuf + (size_t)r * n + c0 + j);
-      gg += g * g;
+    const int nv = 1 + 2 * k + 2 * k * k;
+    for (int v = wid; v < nv; v += NW) {
+      const T *a, *b;
+      if (v == 0) {
+        a = g_s; b = g_s;
+      } else if (v <= 2 * k) {
+        const int i = (v - 1) % k;
+        a = (v <= k ? sr_s : yr_s) + (size_t)i * nel; b = g_s;
+      } else {
+        const int x = v - 1 - 2 * k;             // STY then YTY, row-major
+        const int q = x % (k * k), i = q / k, j = q % k;
+        a = (x < k * k ? sr_s : yr_s) + (size_t)i * nel;
+        b = yr_s + (size_t)j * nel;
+      }
+      const T s = warp_slab_dot(a, b, nel, ns);
+      if (lane == 0) __stcg(slot(v), s);
     }
-    gg = block_sum(gg, red);
-    if (tid == 0) pbuf(ph)[(size_t)blk * np] = gg;
   }
-  grid.sync();
-  grid_totals(pbuf(ph), P.nblk, np, 1, tot);
-  ++ph;
+  K2_SYNC();
+  totals(1 + 2 * k + 2 * k * k);
   T gsq = tot[0];
   T gnorm = sqrt(gsq) / P.gscale;
+  T* pvec = tot + 1;   // [S'g; Y'g], valid until the next grid_totals
+  for (int x = tid; x < k * k; x += NT) {
+    STY[x] = tot[1 + 2 * k + x];
+    YTY[x] = tot[1 + 2 * k + k * k + x];
+  }
+  __syncthreads();
 
   int steps = 0;
   bool stag = false;
   T alpha_last = 0;
+#ifdef K2_TIMING
+  nbar_entry = nbar;
+  if (tmr) tprev = k2_now();
+#endif
 
   // ---- the inner loop -----------------------------------------------------
   while (gnorm > cur_gtol && steps < max_steps && !stag) {
-    T* Gc = P.gbuf + (size_t)cur * rp * n;
-    T* Gn = P.gbuf + (size_t)(cur ^ 1) * rp * n;
-    const T* src = Gc;  // the direction is -src
-    T slope0 = -gsq;    // <G, -G>
+    T* Gc = g_s + (size_t)cur * nel;
+    T* Gn = g_s + (size_t)(cur ^ 1) * nel;
 
-    if (P.use_hist) {
-      // two-loop recursion over the ring (own slab; one barrier per dot)
-      for (int e = tid; e < ne; e += NT) {
-        int r = e / ns, j = e % ns;
-        q_s[r * MAX_S + j] = __ldcg(Gc + (size_t)r * n + c0 + j);
+    // ---- direction (every block the same scalars) -------------------------
+    if (tid == 0) {
+      T slope = -gsq;     // <G, -G>
+      bool hist = false;
+      if (P.use_hist) {
+        compact_w_any(k, head, rho, STY, YTY, pvec, wv);
+        T s = gsq;
+        for (int i = 0; i < 2 * k; ++i) s = s + wv[i] * pvec[i];
+        const T descent = -s;
+        hist = !((descent != descent) || descent >= T(0));
+        if (hist) slope = descent;
       }
-      T a_vals[MAX_K];
-      for (int pass = 0; pass < 2; ++pass) {
-        for (int i = 0; i < k; ++i) {
-          // backward: jj = head - i; forward: the same slots in reverse
-          int ii = pass == 0 ? i : k - 1 - i;
-          int jj = ((head - ii) % k + k) % k;
-          const T* sj = P.s_ring + (size_t)jj * rp * n;
-          const T* yj = P.y_ring + (size_t)jj * rp * n;
-          const T* dj = pass == 0 ? sj : yj;
-          __syncthreads();
-          T s = 0;
-          for (int e = tid; e < ne; e += NT) {
-            int r = e / ns, j = e % ns;
-            s += dj[(size_t)r * n + c0 + j] * q_s[r * MAX_S + j];
-          }
-          s = block_sum(s, red);
-          if (tid == 0) pbuf(ph)[(size_t)blk * np] = s;
-          grid.sync();
-          grid_totals(pbuf(ph), P.nblk, np, 1, tot);
-          ++ph;
-          T dot = tot[0];
-          if (pass == 0) {
-            T a = rho[jj] * dot;
-            a_vals[ii] = a;
-            for (int e = tid; e < ne; e += NT) {
-              int r = e / ns, j = e % ns;
-              q_s[r * MAX_S + j] = q_s[r * MAX_S + j] - a * yj[(size_t)r * n + c0 + j];
-            }
-          } else {
-            T bq = rho[jj] * dot;
-            T coef = a_vals[ii] - bq;
-            for (int e = tid; e < ne; e += NT) {
-              int r = e / ns, j = e % ns;
-              q_s[r * MAX_S + j] = q_s[r * MAX_S + j] + coef * sj[(size_t)r * n + c0 + j];
-            }
-          }
-        }
-      }
-      // publish q; the descent test <-q, G>
-      __syncthreads();
-      T s = 0;
-      for (int e = tid; e < ne; e += NT) {
-        int r = e / ns, j = e % ns;
-        T qv = q_s[r * MAX_S + j];
-        __stcg(P.qbuf + (size_t)r * n + c0 + j, qv);
-        s += (-qv) * __ldcg(Gc + (size_t)r * n + c0 + j);
-      }
-      s = block_sum(s, red);
-      if (tid == 0) pbuf(ph)[(size_t)blk * np] = s;
-      grid.sync();
-      grid_totals(pbuf(ph), P.nblk, np, 1, tot);
-      ++ph;
-      T descent = tot[0];
-      bool bad = (descent != descent) || descent >= T(0);
-      src = bad ? Gc : P.qbuf;
-      if (!bad) slope0 = descent;
+      slope_s[0] = slope;
+      slope_s[1] = hist ? T(1) : T(0);
     }
+    __syncthreads();
+    const T slope0 = slope_s[0];
+    const bool hist = slope_s[1] != T(0);
+    for (int e = tid; e < nel; e += NT) {
+      const int r = e >> 4, j = e & (MAX_S - 1);
+      if (j >= ns) continue;
+      T h = Gc[e];
+      if (hist) {
+        T acc = 0;
+        for (int i = 0; i < k; ++i) acc = acc + wv[i] * sr_s[i * nel + e];
+        for (int i = 0; i < k; ++i) acc = acc + wv[k + i] * yr_s[i * nel + e];
+        h = h + acc;
+      }
+      d_s[e] = -h;
+      __stcg(P.dbuf + (size_t)r * n + c0 + j, -h);
+    }
+    K2_STAMP(PH_DIR);
+    K2_SYNC();
+    K2_STAMP(PH_D_BAR);
 
     // ---- line-search products and the Armijo candidates -------------------
-    for (int e = tid; e < ne; e += NT) {
-      int r = e / ns, j = e % ns;
-      d_s[r * MAX_S + j] = -__ldcg(src + (size_t)r * n + c0 + j);
-    }
-    cd_product(P, src, T(-1), c0, ns, Ds, Cs, red, CDt_s);
-    mypart = pbuf(ph) + (size_t)blk * np;
+    cd_product(n, rp, P.C, P.c_res, (const T*)P.dbuf, T(1), c0, ns, Cs, red,
+               CDt_s);
+    K2_STAMP(PH_DC);
     {
-      T p1 = 0, p2 = 0;
-      for (int e = tid; e < ne; e += NT) {
-        int r = e / ns, j = e % ns;
-        int x = r * MAX_S + j;
-        p1 += Rt_s[x] * CDt_s[x];
-        p2 += d_s[x] * CDt_s[x];
+      if (wid == 0) {
+        const T p1 = warp_slab_dot(Rt_s, CDt_s, nel, ns);
+        if (lane == 0) __stcg(slot(0), two * p1);
+      } else if (wid == 1) {
+        const T p2 = warp_slab_dot(d_s, CDt_s, nel, ns);
+        if (lane == 0) __stcg(slot(1), p2);
       }
-      p1 = block_sum(p1, red);
-      p2 = block_sum(p2, red);
       for (int j = tid; j < ns; j += NT) {
         T rd = 0, dd = 0;
         for (int r = 0; r < rp; ++r) {
@@ -549,18 +790,16 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
         rv2_s[j] = dd;
       }
       __syncthreads();
-      if (tid == 0) {
+      if (tid == 64) {
         T w1[MAX_W] = {0, 0}, w2[MAX_W] = {0, 0};
         for (int j = 0; j < ns; ++j)
           for (int i = 0; i < n_w; ++i) {
             w1[i] += ww_s[i * MAX_S + j] * rv1_s[j];
             w2[i] += ww_s[i * MAX_S + j] * rv2_s[j];
           }
-        mypart[0] = two * p1;
-        mypart[1] = p2;
         for (int i = 0; i < MAX_W; ++i) {
-          mypart[P_QW1 + i] = w1[i];
-          mypart[P_QW2 + i] = w2[i];
+          __stcg(slot(P_QW1 + i), w1[i]);
+          __stcg(slot(P_QW2 + i), w2[i]);
         }
       }
       // the slab's channel sum of (lt^2 - lam^2) at every candidate step
@@ -574,52 +813,80 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
             T lt = tmin(ub_s[x], lam_s[x] - sigma * (vio_s[x] + a * (a * q2 + q1)));
             s += lt * lt - lam_s[x] * lam_s[x];
           }
-        mypart[P_CAND + t] = s;
+        __stcg(slot(P_CAND + t), s);
       }
       for (int x = tid; x < rp * lrc; x += NT) {
         int r = x / lrc, c = x % lrc;
         T s = 0;
         for (int j = 0; j < ns; ++j) s += d_s[r * MAX_S + j] * Bs[j * MAX_LRC + c];
-        mypart[N_LS + x] = s;
+        __stcg(slot(N_LS + x), s);
       }
     }
-    grid.sync();
-    grid_totals(pbuf(ph), P.nblk, np, N_LS + rp * lrc, tot);
-    ++ph;
-    for (int x = tid; x < rp * lrc; x += NT) Qd[x] = tot[N_LS + x];
+    K2_STAMP(PH_LS);
+    K2_SYNC();
+    K2_STAMP(PH_LS_BAR);
+    totals(N_LS + rp * lrc);
+    const T* Qd = tot + N_LS;   // valid until the gradient's totals
+    K2_STAMP(PH_LS_TOT);
+
+    // the low-rank products, one warp per term and product
+    if (wid < 2 * MAX_LR && (wid % MAX_LR) < P.n_lr) {
+      const int t = wid % MAX_LR, c_lo = P.lr_off[t];
+      const int nc = P.lr_off[t + 1] - c_lo;
+      const T* Qa = wid < MAX_LR ? Q : Qd;
+      T s_ = 0;
+      for (int x = lane; x < rp * nc; x += 32) {
+        const int r = x / nc, c = c_lo + x % nc;
+        s_ += Qa[r * lrc + c] * Qd[r * lrc + c] * P.lrd[c];
+      }
+      s_ = warp_sum(s_);
+      if (lane == 0) plr[wid] = wid < MAX_LR ? two * s_ : s_;
+    }
     __syncthreads();
 
-    // ---- the Armijo step (every thread, the same bits) --------------------
+    // ---- the Armijo step: candidate t on thread t; the first that passes
+    // by ballot (every block the same bits) ---------------------------------
     T p1 = tot[0], p2 = tot[1];
     T q1_w[MAX_W], q2_w[MAX_W];
     for (int i = 0; i < n_w; ++i) {
       q1_w[i] = tot[P_QW1 + i];
       q2_w[i] = tot[P_QW2 + i];
     }
-    T p1_lr[MAX_LR], p2_lr[MAX_LR];
-    for (int t = 0; t < P.n_lr; ++t) {
-      p1_lr[t] = two * lr_tr(Q, Qd, t);
-      p2_lr[t] = lr_tr(Qd, Qd, t);
+    const T* p1_lr = plr;
+    const T* p2_lr = plr + MAX_LR;
+    for (int t = 0; t < P.n_lr; ++t)
       if (P.lr_cons[t] < 0) {
         p1 = p1 + p1_lr[t];
         p2 = p2 + p2_lr[t];
       }
-    }
-    T alpha = 0, L_new = 0;
-    for (int t = 0; t < N_CAND; ++t) {
-      T a = cand[t];
-      T vw[MAX_W], vl[MAX_LR];
-      for (int i = 0; i < n_w; ++i) vw[i] = vio_w[i] + a * (a * q2_w[i] + q1_w[i]);
-      for (int tt = 0; tt < P.n_lr; ++tt) {
-        int i = P.lr_cons[tt];
-        if (i >= 0) vl[i] = vio_lr[i] + a * (a * p2_lr[tt] + p1_lr[tt]);
+    if (wid < 2) {
+      bool pass = false;
+      if (tid < N_CAND) {
+        const T a = cand[tid];
+        T vw[MAX_W], vl[MAX_LR];
+        for (int i = 0; i < n_w; ++i) vw[i] = vio_w[i] + a * (a * q2_w[i] + q1_w[i]);
+        for (int tt = 0; tt < P.n_lr; ++tt) {
+          int i = P.lr_cons[tt];
+          if (i >= 0) vl[i] = vio_lr[i] + a * (a * p2_lr[tt] + p1_lr[tt]);
+        }
+        T L = obj + a * (a * p2 + p1) + tot[P_CAND + tid] / two_sigma;
+        L = L + rest_of(vw, vl);
+        Lc[tid] = L;
+        pass = !(L > L_val + c_armijo * a * slope0);
       }
-      T L = obj + a * (a * p2 + p1) + tot[P_CAND + t] / two_sigma;
-      L = L + rest_of(vw, vl);
-      alpha = a;
-      L_new = L;
-      if (!(L > L_val + c_armijo * a * slope0)) break;
+      const unsigned m = __ballot_sync(0xffffffffu, pass);
+      if (lane == 0) passm[wid] = m;
     }
+    __syncthreads();
+    const int t_ok = passm[0] ? __ffs(passm[0]) - 1
+                   : (passm[1] ? 32 + __ffs(passm[1]) - 1 : N_CAND - 1);
+    const T alpha = cand[t_ok], L_new = Lc[t_ok];
+    const T rel_delta = (L_val - L_new) /
+                        fmax(T(1), fmax(fabs(L_new), fabs(L_val)));
+    const bool stag_new = rel_delta < stag_tol;
+    const bool push = P.use_hist && !stag_new;
+    const int jn = (head + 1) % k;               // the pushed slot
+    K2_STAMP(PH_ARMIJO);
 
     // ---- algebraic commit ---------------------------------------------------
     for (int x = tid; x < nch; x += NT) {
@@ -634,59 +901,66 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
       if (i >= 0) vio_lr[i] = vio_lr[i] + alpha * (alpha * p2_lr[t] + p1_lr[t]);
     }
     obj = obj + alpha * (alpha * p2 + p1);
-    for (int e = tid; e < ne; e += NT) {
-      int r = e / ns, j = e % ns;
-      int x = r * MAX_S + j;
-      Rt_s[x] = Rt_s[x] + alpha * d_s[x];
-      CRt_s[x] = CRt_s[x] + alpha * CDt_s[x];
+    for (int e = tid; e < nel; e += NT) {
+      if ((e & (MAX_S - 1)) >= ns) continue;
+      Rt_s[e] = Rt_s[e] + alpha * d_s[e];
+      CRt_s[e] = CRt_s[e] + alpha * CDt_s[e];
     }
     __syncthreads();  // every thread has read Q and Qd for the step
     for (int x = tid; x < rp * lrc; x += NT) Q[x] = Q[x] + alpha * Qd[x];
     __syncthreads();
 
-    // ---- gradient, ||G||^2 and y's ------------------------------------------
+    // ---- gradient, the ring push and the next direction's dots --------------
     gradient(Gn);
-    mypart = pbuf(ph) + (size_t)blk * np;
-    {
-      T gg = 0, ys = 0;
-      for (int e = tid; e < ne; e += NT) {
-        int r = e / ns, j = e % ns;
-        size_t g = (size_t)r * n + c0 + j;
-        T gn = __ldcg(Gn + g);
-        gg += gn * gn;
-        ys += (gn - __ldcg(Gc + g)) * (alpha * d_s[r * MAX_S + j]);
-      }
-      gg = block_sum(gg, red);
-      ys = block_sum(ys, red);
-      if (tid == 0) {
-        mypart[0] = gg;
-        mypart[1] = ys;
-      }
-    }
-    grid.sync();
-    grid_totals(pbuf(ph), P.nblk, np, 2, tot);
-    ++ph;
-    gsq = tot[0];
-    T gnorm_new = sqrt(gsq) / P.gscale;
-    T ys = tot[1];
-
-    T rel_delta = (L_val - L_new) /
-                  fmax(T(1), fmax(fabs(L_new), fabs(L_val)));
-    bool stag_new = rel_delta < stag_tol;
-
-    if (P.use_hist && !stag_new) {
-      int head_new = (head + 1) % k;
-      T* sdst = P.s_ring + (size_t)head_new * rp * n;
-      T* ydst = P.y_ring + (size_t)head_new * rp * n;
-      for (int e = tid; e < ne; e += NT) {
-        int r = e / ns, j = e % ns;
-        size_t g = (size_t)r * n + c0 + j;
-        sdst[g] = alpha * d_s[r * MAX_S + j];
-        ydst[g] = __ldcg(Gn + g) - __ldcg(Gc + g);
+    if (push) {
+      T* s_new = sr_s + (size_t)jn * nel;
+      T* y_new = yr_s + (size_t)jn * nel;
+      for (int e = tid; e < nel; e += NT) {
+        if ((e & (MAX_S - 1)) >= ns) continue;
+        s_new[e] = alpha * d_s[e];
+        y_new[e] = Gn[e] - Gc[e];
       }
       __syncthreads();
-      if (tid == 0) rho[head_new] = T(1) / ys;
-      head = head_new;
+    }
+    {
+      // 0: g'g; 1..k: S'g; k+1..2k: Y'g; with a push also 2k+1..3k:
+      // s_j'y_i; 3k+1..4k: s_i'y_j; 4k+1..5k: y_i'y_j
+      const int nv = push ? 1 + 5 * k : 1 + 2 * k;
+      for (int v = wid; v < nv; v += NW) {
+        const T *a, *b;
+        if (v == 0) {
+          a = Gn; b = Gn;
+        } else if (v <= 2 * k) {
+          const int i = (v - 1) % k;
+          a = (v <= k ? sr_s : yr_s) + (size_t)i * nel; b = Gn;
+        } else {
+          const int x = v - 1 - 2 * k, i = x % k, which = x / k;
+          const T* sj = sr_s + (size_t)jn * nel;
+          const T* yj = yr_s + (size_t)jn * nel;
+          if (which == 0) { a = sj; b = yr_s + (size_t)i * nel; }
+          else if (which == 1) { a = sr_s + (size_t)i * nel; b = yj; }
+          else { a = yr_s + (size_t)i * nel; b = yj; }
+        }
+        const T s = warp_slab_dot(a, b, nel, ns);
+        if (lane == 0) __stcg(slot(v), s);
+      }
+    }
+    K2_STAMP(PH_GRAD);
+    K2_SYNC();
+    K2_STAMP(PH_GRAD_BAR);
+    totals(push ? 1 + 5 * k : 1 + 2 * k);
+    gsq = tot[0];
+    const T gnorm_new = sqrt(gsq) / P.gscale;
+    if (push) {
+      for (int i = tid; i < k; i += NT) {
+        STY[jn * k + i] = tot[1 + 2 * k + i];
+        STY[i * k + jn] = tot[1 + 3 * k + i];
+        YTY[jn * k + i] = tot[1 + 4 * k + i];
+        YTY[i * k + jn] = tot[1 + 4 * k + i];
+      }
+      __syncthreads();
+      if (tid == 0) rho[jn] = T(1) / STY[jn * k + jn];
+      head = jn;
     }
     __syncthreads();
 
@@ -696,15 +970,21 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
     alpha_last = alpha;
     cur ^= 1;
     ++steps;
+    K2_STAMP(PH_GRAD_TOT);
   }
 
   // ---- outputs ----------------------------------------------------------------
-  const T* Gf = P.gbuf + (size_t)cur * rp * n;
-  for (int e = tid; e < ne; e += NT) {
-    int r = e / ns, j = e % ns;
-    size_t g = (size_t)r * n + c0 + j;
-    P.Rt_out[g] = Rt_s[r * MAX_S + j];
-    P.G_out[g] = __ldcg(Gf + g);
+  const T* Gf = g_s + (size_t)cur * nel;
+  for (int e = tid; e < nel; e += NT) {
+    const int r = e >> 4, j = e & (MAX_S - 1);
+    if (j >= ns) continue;
+    const size_t g = (size_t)r * n + c0 + j;
+    P.Rt_out[g] = Rt_s[e];
+    P.G_out[g] = Gf[e];
+    for (int i = 0; i < k; ++i) {
+      P.s_ring[(size_t)i * rp * n + g] = sr_s[i * nel + e];
+      P.y_ring[(size_t)i * rp * n + g] = yr_s[i * nel + e];
+    }
   }
   for (int x = tid; x < nch; x += NT) {
     int ch = x / ns, j = x % ns;
@@ -723,14 +1003,20 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
     const int n_vlr = P.n_lc > 1 ? P.n_lc : 1;
     for (int i = 0; i < n_vlr; ++i) o[7 + k + i] = i < P.n_lc ? vio_lr[i] : T(0);
     for (int i = 0; i < n_w; ++i) o[7 + k + n_vlr + i] = vio_w[i];
+    // the Grams after the launch, slot order
+    T* og = o + 7 + k + n_vlr + n_w;
+    for (int x = 0; x < k * k; ++x) {
+      og[x] = STY[x];
+      og[k * k + x] = YTY[x];
+    }
   }
-}
-
-size_t smem_elems() {
-  return 5 * MAX_RP * MAX_S + 5 * MAX_J * MAX_S + 3 * MAX_S + MAX_W * MAX_S +
-         N_CAND + (MAX_RP + MAX_S) * (IC + 1) + OPT * NT +
-         (N_LS + MAX_RP * MAX_LRC) + 2 * MAX_RP * MAX_LRC + 2 * MAX_S * MAX_LRC +
-         MAX_K;
+#ifdef K2_TIMING
+  if (tmr && P.tbuf) {
+    for (int i = 0; i < K2_NPH; ++i) P.tbuf[i] = (long long)tacc[i];
+    P.tbuf[K2_NPH] = nbar;
+    P.tbuf[K2_NPH + 1] = nbar_entry;
+  }
+#endif
 }
 
 template <typename T>
@@ -746,19 +1032,26 @@ int plan(K2Args* a) {
   if (!coop) return (int)cudaErrorNotSupported;
   int S = (a->n_pad + sms - 1) / sms;
   int nblk = (a->n_pad + S - 1) / S;
-  int smem = (int)(smem_elems() * sizeof(T));
+  if (nblk > MAX_NBLK) return (int)cudaErrorInvalidConfiguration;
+  size_t with_c = smem_elems(a->n_pad, a->rp, a->k, a->lrc, S, 1) * sizeof(T);
+  size_t without_c = smem_elems(a->n_pad, a->rp, a->k, a->lrc, S, 0) * sizeof(T);
+  int resident = with_c <= (size_t)SMEM_MAX;
+  size_t smem_sz = resident ? with_c : without_c;
+  if (smem_sz > (size_t)SMEM_MAX) return (int)cudaErrorInvalidConfiguration;
+  int smem = (int)smem_sz;
   err = cudaFuncSetAttribute(k2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k2_kernel<T>, NT, smem);
   if (err != cudaSuccess) return (int)err;
-  int np = npart_for(a->rp, a->lrc);
+  int np = npart_for(a->rp, a->k, a->lrc);
   a->S = S;
   a->nblk = nblk;
   a->smem_bytes = smem;
   a->sms = sms;
   a->blocks_per_sm = per_sm;
-  a->work_elems = 3LL * a->rp * a->n_pad + 2LL * nblk * np;
+  a->c_resident = resident;
+  a->work_elems = 1LL * a->rp * a->n_pad + 2LL * nblk * np;
   return 0;
 }
 
@@ -780,7 +1073,9 @@ int launch(K2Args* a) {
   P.n_w = a->n_w;
   P.S = a->S;
   P.nblk = a->nblk;
-  P.npart = npart_for(a->rp, a->lrc);
+  P.npart = npart_for(a->rp, a->k, a->lrc);
+  P.c_res = a->c_resident;
+  P.cp = c_rows(a->S);
   for (int i = 0; i <= MAX_LR; ++i) P.lr_off[i] = a->lr_off[i];
   for (int i = 0; i < MAX_LR; ++i) P.lr_cons[i] = a->lr_cons[i];
   P.gscale = (T)a->gscale;
@@ -802,10 +1097,10 @@ int launch(K2Args* a) {
   P.G_out = (T*)a->G_out;
   P.vio_out = (T*)a->vio_out;
   P.oscal = (T*)a->oscal;
+  P.tbuf = (long long*)a->tbuf;
   T* work = (T*)a->work;
-  P.gbuf = work;
-  P.qbuf = work + 2LL * a->rp * a->n_pad;
-  P.part = work + 3LL * a->rp * a->n_pad;
+  P.dbuf = work;
+  P.part = work + 1LL * a->rp * a->n_pad;
   void* args[] = {&P};
   cudaError_t err = cudaLaunchCooperativeKernel((const void*)k2_kernel<T>, dim3(a->nblk),
                                                 dim3(NT), args, (size_t)a->smem_bytes,
@@ -833,8 +1128,8 @@ int k2_limits(int* out) {
   return 0;
 }
 
-// Fills S, nblk, smem_bytes, sms, blocks_per_sm and work_elems of *a for
-// its n_pad, rp, lrc and dtype. Returns a cudaError_t.
+// Fills S, nblk, smem_bytes, sms, blocks_per_sm, c_resident and work_elems
+// of *a for its n_pad, rp, k, lrc and dtype. Returns a cudaError_t.
 int k2_plan(K2Args* a) {
   return a->is_double ? plan<double>(a) : plan<float>(a);
 }
@@ -846,5 +1141,8 @@ int k2_launch(K2Args* a) {
 }
 
 const char* k2_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// The timing build's phase names, comma-separated, in tbuf order.
+const char* k2_phases() { return K2_PHASE_NAMES; }
 
 }  // extern "C"

@@ -93,6 +93,9 @@ class DeviceProblem:
     ls_gid_neg: _T = None
     ls_v_pos: _T = None
     ls_v_neg: _T = None
+    # the ELL SpMM's one row gather: tier-1 column ids, then tier-2's
+    # (n_pad·W + R2·W2,), built once with the problem (ops/spmm.py)
+    ell_ids: _T = None
 
     # -- static metadata -----------------------------------------------------
     n: int = 0
@@ -159,7 +162,8 @@ def _tensor(x, dtype, device):
 def device_problem(arrays: dict, lowrank, statics: dict, dtype,
                    device) -> DeviceProblem:
     """Build a DeviceProblem from numpy arrays by field name (float fields
-    cast to ``dtype``, index fields to int64; None stays None)."""
+    cast to ``dtype``, index fields to int64; None stays None), with the
+    SpMM's concatenated column ids ``ell_ids``."""
     kw = {}
     for f in FLOAT_FIELDS:
         v = arrays.get(f)
@@ -172,6 +176,11 @@ def device_problem(arrays: dict, lowrank, statics: dict, dtype,
                       gid=int(g))
         for B, d, g in lowrank
     )
+    if kw["ell_cols"] is not None:
+        tiers = [kw["ell_cols"].reshape(-1)]
+        if kw["ell2_cols"] is not None:
+            tiers.append(kw["ell2_cols"].reshape(-1))
+        kw["ell_ids"] = torch.cat(tiers)
     return DeviceProblem(lowrank=lr, **kw, **statics)
 
 

@@ -2,8 +2,9 @@
 plain PyTorch versions.
 
 ``gather_rows`` is the row take of the ELL SpMM (ops/spmm.py
-``spmm_gather``): every C@X of the fast-diagonal engine and every S-matvec
-of a Lanczos pass runs it once for tier 1 and once for tier 2. With
+``spmm_ell``): every C@X of the fast-diagonal engine and every S-matvec
+of a Lanczos pass runs it once, over tier 1's and tier 2's column ids
+together. With
 ``gather_window`` and ``gather_lanes`` the three kernels are also the
 counterparts of the eight Pallas gather probes of the JAX package's
 experiments (``exps/probe2.py``, ``probe3.py``, ``probe5.py``,

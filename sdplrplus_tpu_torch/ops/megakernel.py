@@ -14,8 +14,12 @@ those files.
 
 What bounds them: per iteration D·C is 2·rp·n_pad² FP32 FLOPs (25.7
 MFLOP at n_pad = 896 and rp = 16, about 0.38 µs at 67 TFLOP/s), and C is
-read once per launch from L2. The 2k + 3 grid barriers per iteration set
-the time of these first versions, not C.
+read once per launch. Grid barriers set their time instead: K1 pays
+2k + 3 per iteration (its two-loop direction takes one per dot); K2
+takes the compact L-BFGS form, whose dots ride the gradient's barrier,
+and pays 3 whatever k, with C's column slab and the ring's slab in
+shared memory for the launch. K2 also returns the ring's Grams SᵀY and
+YᵀY in ``LBFGSState``.
 
 Layout and contract are those of the JAX kernels: the factor, gradient
 and ring live transposed and rank-padded, (rp, n_pad) and (k·rp, n_pad),
@@ -38,7 +42,10 @@ channels per row, at most 2 wide constraints and one diagonal entry per
 narrow constraint (C densified from the ELL layout). That covers n_pad
 896 and 2048 up to the Barvinok–Pataki rank cap (41 at m = 800, 57 at
 m = 1602, 64 at m = 2000). C then takes at most 16.8 MB (f32) or
-33.6 MB (f64) of the 50 MB L2. The kernels also check at launch that
+33.6 MB (f64) of the 50 MB L2. K2 also needs its shared memory within a
+block's 227 KB (``k2_smem_plan``: the slab arrays and the 2k ring slots
+at rp × 16 each, plus C's slab where it fits), which leaves out float64
+with 16 ring slots above rp 40. The kernels also check at launch that
 their grid is co-resident.
 """
 
@@ -103,6 +110,13 @@ class MegaSpec:
 
     @property
     def n_scal_out(self):
+        """[L, obj, gnorm, steps, stagnated, α, head, ρ (k), low-rank
+        violations, wide violations] and, for K2, SᵀY and YᵀY (k², k²)."""
+        return self.o_gram + (2 * self.k * self.k if self.armijo else 0)
+
+    @property
+    def o_gram(self):
+        """Offset of K2's SᵀY in the scalar outputs (YᵀY follows)."""
         return 7 + self.k + max(len(self.lr_cons), 1) + self.n_wide
 
 
@@ -118,6 +132,44 @@ def _layout_ok(dp: DeviceProblem, r: int, k: int) -> bool:
         and max(k, 1) <= MAX_K
         and sum(int(t.B.shape[1]) for t in dp.lowrank) <= MAX_LR_COLS
     )
+
+
+# K2's shared memory (csrc/megakernel_armijo.cu smem_elems, whose layout
+# this mirrors): C's column slab (8 or 16 rows) when it fits, the slab
+# arrays (Rt, CRt, CDt, D, two G and the 2k ring slots, each (rp, 16)),
+# the channel rows and small scalars. Eligibility assumes the H100's 132
+# SMs for the slab width S = ceil(n_pad / 132); the kernel's plan uses the
+# card's count and the wrapper checks that both agree.
+K2_SMEM_MAX = 232448
+K2_SMS = 132
+_K2_N_LS = 2 + 2 * MAX_WIDE + N_CAND
+
+
+def k2_npart(rp: int, k: int, lrc: int) -> int:
+    return max(_K2_N_LS + rp * lrc, 1 + 2 * k + 2 * k * k, 1 + 5 * k)
+
+
+def k2_smem_bytes(n_pad: int, rp: int, k: int, lrc: int, itemsize: int,
+                  S: int, resident: bool) -> int:
+    c_rows = 8 if S <= 8 else 16
+    elems = ((c_rows * n_pad if resident else 0) + (6 + 2 * k) * rp * 16
+             + 5 * MAX_DIAG_CHANNELS * 16 + (3 + MAX_WIDE) * 16 + N_CAND
+             + 8 * 32 + k2_npart(rp, k, lrc) + rp * lrc
+             + 2 * 16 * MAX_LR_COLS + k + 2 * k * k + 2 * k + 2
+             + N_CAND + 2 * MAX_LR_TERMS + 2)
+    return elems * itemsize
+
+
+def k2_smem_plan(n_pad: int, rp: int, k: int, lrc: int, itemsize: int,
+                 sms: int = K2_SMS):
+    """(bytes, C resident) of K2's shared memory, or None when even
+    without C's slab it exceeds a block's 227 KB."""
+    S = -(-n_pad // sms)
+    with_c = k2_smem_bytes(n_pad, rp, k, lrc, itemsize, S, True)
+    if with_c <= K2_SMEM_MAX:
+        return with_c, True
+    without = k2_smem_bytes(n_pad, rp, k, lrc, itemsize, S, False)
+    return (without, False) if without <= K2_SMEM_MAX else None
 
 
 def _entry_counts(dp: DeviceProblem, cid: np.ndarray) -> np.ndarray:
@@ -151,6 +203,10 @@ def megakernel_eligible(dp: DeviceProblem, r: int, k: int, use_armijo: bool,
         if not (dp.all_cons_diagonal
                 and 1 <= dp.diag_width <= MAX_DIAG_CHANNELS
                 and len(dp.wide_gids) <= MAX_WIDE):
+            return False
+        lrc = sum(int(t.B.shape[1]) for t in dp.lowrank)
+        if k2_smem_plan(dp.n_pad, _round_up(max(r, 1), 8), max(k, 1), lrc,
+                        torch.finfo(dtype).bits // 8) is None:
             return False
         counts = _entry_counts(dp, cid.ravel())
         skip = set(dp.wide_gids) | lr_gids
@@ -601,6 +657,34 @@ def mega_chunk_plain(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
     return Rt, G, vio, oscal
 
 
+def _compact_w_plain(k: int, head: int, rho, sty, yty, p):
+    """K2's compact-form coefficients w (2k) with −H·g = −(g + [S Y]·w):
+    u = R⁻¹Sᵀg, v = D·u + YᵀY·u − Yᵀg, w = [R⁻ᵀv; −u] on the Grams in age
+    order (slot (head + 1 + a) % k for a = 0 oldest .. k − 1), empty slots
+    (ρ = 0) masked with a unit diagonal — lbfgs._direction_compact's
+    algebra, taking p = [Sᵀg; Yᵀg] and the Grams as the kernel has them."""
+    perm = torch.as_tensor([(head + 1 + a) % k for a in range(k)],
+                           device=p.device)
+    empty = rho[perm] == 0.0
+    live = ~(empty[:, None] | empty[None, :])
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    stp = torch.where(live, sty[perm][:, perm], zero)
+    ytp = torch.where(live, yty[perm][:, perm], zero)
+    Rp = torch.triu(stp) + torch.diag(empty.to(p.dtype))
+    u = torch.linalg.solve_triangular(Rp, p[perm][:, None], upper=True)[:, 0]
+    v = torch.diagonal(stp) * u + ytp @ u - p[k + perm]
+    w1 = torch.linalg.solve_triangular(Rp.T, v[:, None], upper=False)[:, 0]
+    w = torch.zeros(2 * k, dtype=p.dtype, device=p.device)
+    w[perm] = w1
+    w[k + perm] = -u
+    return w
+
+
+def _ring_views(spec: MegaSpec, s_ring, y_ring):
+    """(k, rp·n_pad) views of the kernel-layout rings."""
+    return s_ring.reshape(spec.k, -1), y_ring.reshape(spec.k, -1)
+
+
 def armijo_steps(alpha_max: float, dtype, device) -> torch.Tensor:
     """K2's candidate steps α_max·2⁻ᵗ, t = 0..N_CAND−1, halved exactly on
     the host (a device pow need not be exact)."""
@@ -612,14 +696,18 @@ def mega_chunk_armijo_plain(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB,
                             WW, s_ring, y_ring, lr_B, lr_Bdt, lr_d):
     """K2's loop, step by step in torch, on the kernel's layout: the same
     inputs as the CUDA launch and the same outputs (Rt, G, vio (J,
-    n_pad), oscal); the rings are updated in place.
+    n_pad), oscal with the ring's SᵀY and YᵀY); the rings are updated in
+    place.
 
     The sharp AL ℒ = obj + Σ(λ̃² − λ²)/(2σ), λ̃ = min(λ_ub, λ − σv), over
     the J channel rows, the wide constraints and the low-rank equality
-    terms (megakernel.py:516-780). The Armijo step is the first candidate
-    α_max·2⁻ᵗ (t = 0..50) with ℒ(α) ≤ ℒ + c·α·⟨G, D⟩, else the last: the
-    α of the sequential backtracking loop, with every candidate evaluated
-    at once as the kernel does."""
+    terms (megakernel.py:516-780). The direction is the compact L-BFGS
+    form on Grams built from the ring at entry and refreshed on every
+    push (its row and column), with slope ⟨G, D⟩ = −(gᵀg + wᵀp) from
+    scalars, as the kernel computes them. The Armijo step is the first
+    candidate α_max·2⁻ᵗ (t = 0..50) with ℒ(α) ≤ ℒ + c·α·⟨G, D⟩, else the
+    last: the α of the sequential backtracking loop, with every candidate
+    evaluated at once as the kernel does."""
     k, n_w = spec.k, spec.n_wide
     dtype, dev = Rt_in.dtype, Rt_in.device
     host = lambda x: x.detach().to("cpu")
@@ -691,20 +779,24 @@ def mega_chunk_armijo_plain(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB,
     obj, vio, vio_w, vio_lr = state_of(Rt, CRt, Q)
     L_val = al_of(obj, vio, vio_w, vio_lr)
     G = grad_of(Rt, CRt, Q, vio, vio_w, vio_lr)
-    gnorm = torch.sqrt(torch.sum(G * G)) / spec.gscale
+    S2, Y2 = _ring_views(spec, s_ring, y_ring)
+    sty, yty = S2 @ Y2.T, Y2 @ Y2.T
+    gsq = torch.sum(G * G)
+    p = torch.cat([S2 @ G.reshape(-1), Y2 @ G.reshape(-1)])
+    gnorm = torch.sqrt(gsq) / spec.gscale
     steps, stag = 0, False
     alpha = torch.zeros((), dtype=dtype, device=dev)
     cand = armijo_steps(spec.alpha_max, dtype, dev)
     ca = cand[:, None, None]
 
     while float(gnorm) > cur_gtol and steps < max_steps and not stag:
-        direction = -G
+        direction, slope0 = -G, -gsq
         if spec.use_hist:
-            direction = _two_loop_plain(spec, G, s_ring, y_ring, rho, head)
-            descent = float(torch.sum(direction * G))
-            if math.isnan(descent) or descent >= 0.0:
-                direction = -G
-        slope0 = torch.sum(G * direction)
+            w = _compact_w_plain(k, head, rho, sty, yty, p)
+            descent = -(gsq + w @ p)
+            if not (math.isnan(float(descent)) or float(descent) >= 0.0):
+                direction = -(G + (w[:k] @ S2 + w[k:] @ Y2).reshape(G.shape))
+                slope0 = descent
 
         # line-search products, shared by every candidate step
         CDt = direction @ C
@@ -747,15 +839,26 @@ def mega_chunk_armijo_plain(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB,
         Q = Q + alpha * Qd
 
         G_new = grad_of(Rt, CRt, Q, vio, vio_w, vio_lr)
-        gnorm = torch.sqrt(torch.sum(G_new * G_new)) / spec.gscale
         L_old_h, L_new_h = host(L_val), host(L_new)
         rel_delta = (L_old_h - L_new_h) / torch.maximum(
             torch.ones_like(L_new_h),
             torch.maximum(L_new_h.abs(), L_old_h.abs()))
         stag = bool(rel_delta < stag_tol)
         if spec.use_hist and not stag:
-            head = _push_plain(spec, s_ring, y_ring, rho, head, alpha,
-                               direction, G, G_new)
+            # push (s, y) = (α·D, G_new − G) and refresh the slot's row and
+            # column of the Grams over the ring after the push
+            j = (head + 1) % k
+            S2[j] = (alpha * direction).reshape(-1)
+            Y2[j] = (G_new - G).reshape(-1)
+            sty[j, :] = Y2 @ S2[j]
+            sty[:, j] = S2 @ Y2[j]
+            yty[j, :] = Y2 @ Y2[j]
+            yty[:, j] = yty[j, :]
+            rho[j] = 1.0 / sty[j, j]
+            head = j
+        gsq = torch.sum(G_new * G_new)
+        p = torch.cat([S2 @ G_new.reshape(-1), Y2 @ G_new.reshape(-1)])
+        gnorm = torch.sqrt(gsq) / spec.gscale
         G = G_new
         L_val = L_new
         steps += 1
@@ -773,6 +876,9 @@ def mega_chunk_armijo_plain(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB,
     for i in range(n_lc):
         oscal[7 + k + i] = vio_lr[i]
     oscal[o_vw:o_vw + n_w] = vio_w
+    o = spec.o_gram
+    oscal[o:o + k * k] = sty.reshape(-1)
+    oscal[o + k * k:o + 2 * k * k] = yty.reshape(-1)
     return Rt, G, vio, oscal
 
 
@@ -816,9 +922,9 @@ class _K2Args(ctypes.Structure):
         + [(f, ctypes.c_void_p) for f in (
             "scal", "C", "Rt_in", "LAM", "W", "B", "UB", "WW", "s_ring",
             "y_ring", "lrB", "lrBdt", "lrd", "Rt_out", "G_out", "vio_out",
-            "oscal", "work", "stream")]
+            "oscal", "work", "tbuf", "stream")]
         + [(f, ctypes.c_int) for f in (
-            "S", "nblk", "smem_bytes", "sms", "blocks_per_sm")]
+            "S", "nblk", "smem_bytes", "sms", "blocks_per_sm", "c_resident")]
         + [("work_elems", ctypes.c_longlong)]
     )
 
@@ -831,7 +937,7 @@ class CudaKernel:
     ``_launch`` and ``_error_string``."""
 
     def __init__(self, name: str, source: str, prefix: str, args_type,
-                 limits: tuple):
+                 limits: tuple, defines: tuple = ()):
         self.name, self.prefix = name, prefix
         self.args_type, self.limits = args_type, limits
         self.launches = 0
@@ -839,7 +945,8 @@ class CudaKernel:
         self.lib = CudaLibrary(
             source, {f"{prefix}_limits": [ctypes.POINTER(ctypes.c_int)],
                      f"{prefix}_plan": by_ref, f"{prefix}_launch": by_ref},
-            f"{prefix}_error_string", on_load=self._check_limits)
+            f"{prefix}_error_string", on_load=self._check_limits,
+            defines=defines)
 
     def _check_limits(self, lib):
         want = self.limits + (ctypes.sizeof(self.args_type),)
@@ -872,9 +979,19 @@ class CudaKernel:
 
 
 _COMMON_LIMITS = (MAX_RP, 16, MAX_K, MAX_LR_TERMS, MAX_LR_COLS, N_CHUNK)
+_K2_LIMITS = _COMMON_LIMITS + (MAX_DIAG_CHANNELS, MAX_WIDE, N_CAND)
 K1 = CudaKernel("K1", "megakernel.cu", "k1", _K1Args, _COMMON_LIMITS)
-K2 = CudaKernel("K2", "megakernel_armijo.cu", "k2", _K2Args,
-                _COMMON_LIMITS + (MAX_DIAG_CHANNELS, MAX_WIDE, N_CAND))
+K2 = CudaKernel("K2", "megakernel_armijo.cu", "k2", _K2Args, _K2_LIMITS)
+# Timing builds (-DK2_TIMING): the same sources with per-phase %globaltimer
+# stamps and a barrier count, written to a ``tbuf`` (``k2_phase_times``).
+# Only the measurement of K2's phases launches them (chip_smoke.py phase
+# 8), on their own launch counts; K2_TWOLOOP_TIMED is K2's design before
+# the compact redesign, kept as that measurement's baseline.
+K2_TIMED = CudaKernel("K2 timing build", "megakernel_armijo.cu", "k2",
+                      _K2Args, _K2_LIMITS, defines=("K2_TIMING",))
+K2_TWOLOOP_TIMED = CudaKernel(
+    "K2 two-loop baseline, timing build", "megakernel_armijo_twoloop.cu",
+    "k2", _K2Args, _K2_LIMITS, defines=("K2_TIMING",))
 
 
 def _args_for(spec: MegaSpec, dtype, device, args_type=_K1Args):
@@ -959,11 +1076,14 @@ def mega_kernel(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
 
 
 def mega_kernel_armijo(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB, WW,
-                       s_ring, y_ring, lr_B, lr_Bdt, lr_d):
+                       s_ring, y_ring, lr_B, lr_Bdt, lr_d, *, kernel=None,
+                       tbuf=None):
     """Launch K2 on CUDA tensors: the same arguments and results as
     ``mega_chunk_armijo_plain``; ``s_ring``/``y_ring`` are updated in
     place. The launch goes on the current stream and does not
-    synchronise."""
+    synchronise. ``kernel`` and ``tbuf`` are for the timing builds only
+    (``k2_phase_times``)."""
+    kernel = K2 if kernel is None else kernel
     dtype, dev = Rt_in.dtype, Rt_in.device
     n, rp, k, J, n_w = spec.n_pad, spec.rp, spec.k, spec.J, spec.n_wide
     lrc = int(sum(spec.lr_sizes))
@@ -981,7 +1101,14 @@ def mega_kernel_armijo(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB, WW,
     _check_args("K2", want, got, dtype, dev)
     a = _args_for(spec, dtype, dev, _K2Args)
     a.J, a.n_w = J, n_w
-    a = K2.plan(a)
+    a = kernel.plan(a)
+    if kernel.lib.source == K2.lib.source:
+        want = k2_smem_plan(n, rp, k, lrc, torch.finfo(dtype).bits // 8,
+                            a.sms)
+        if want != (a.smem_bytes, bool(a.c_resident)):
+            raise RuntimeError(
+                f"K2 plans {a.smem_bytes} B of shared memory (C resident: "
+                f"{bool(a.c_resident)}), the wrapper's mirror {want}")
     Rt_out = torch.empty((rp, n), dtype=dtype, device=dev)
     G_out = torch.empty((rp, n), dtype=dtype, device=dev)
     vio_out = torch.empty((J, n), dtype=dtype, device=dev)
@@ -994,9 +1121,36 @@ def mega_kernel_armijo(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB, WW,
     a.lrB, a.lrBdt, a.lrd = _ptr(lr_B), _ptr(lr_Bdt), _ptr(lr_d)
     a.Rt_out, a.G_out, a.vio_out = _ptr(Rt_out), _ptr(G_out), _ptr(vio_out)
     a.oscal, a.work = _ptr(oscal), _ptr(work)
+    if tbuf is not None:
+        a.tbuf = _ptr(tbuf)
     a.stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    K2.launch(a)
+    kernel.launch(a)
     return Rt_out, G_out, vio_out, oscal
+
+
+def k2_phase_times(kernel, spec: MegaSpec, args: tuple, steps: int):
+    """One launch of a K2 timing build (``K2_TIMED`` or
+    ``K2_TWOLOOP_TIMED``) of exactly ``steps`` iterations from
+    ``mega_inputs``' arguments (the rings are copied first): returns
+    ({phase: µs per iteration}, grid barriers per iteration, barriers at
+    entry), from block 0's %globaltimer sums."""
+    lib = kernel.lib.built.lib
+    lib.k2_phases.restype = ctypes.c_char_p
+    names = lib.k2_phases().decode().split(",")
+    scal = args[0].clone()
+    scal[3] = steps
+    s_ring, y_ring = (x.clone() for x in rings_of(spec, args))
+    tbuf = torch.zeros(len(names) + 2, dtype=torch.int64,
+                       device=args[0].device)
+    out = mega_kernel_armijo(spec, scal, *args[1:8], s_ring, y_ring,
+                             *args[10:], kernel=kernel, tbuf=tbuf)
+    t = tbuf.cpu().tolist()
+    done = int(out[3][3].item())
+    if done != steps:
+        raise RuntimeError(f"{kernel.name} ran {done} of {steps} steps")
+    per_it = {nm: t[i] / 1e3 / steps for i, nm in enumerate(names)}
+    n_ph = len(names)
+    return per_it, (t[n_ph] - t[n_ph + 1]) / steps, t[n_ph + 1]
 
 
 def _lr_cons_gids(spec: MegaSpec):
@@ -1082,12 +1236,16 @@ def mega_carry(spec: MegaSpec, r: int, m: int, pscale: float, data, lam,
     vio_raw[m] = osc[1]
     lam_t = torch.minimum(data.lam_ub, lam - sigma * vio_raw[:m])
     y_full = torch.cat([-lam_t, torch.ones(1, dtype=dtype, device=dev)])
+    if spec.armijo:
+        o = spec.o_gram
+        sty = osc[o:o + kk * kk].reshape(kk, kk).clone()
+        yty = osc[o + kk * kk:o + 2 * kk * kk].reshape(kk, kk).clone()
+    else:
+        sty = torch.zeros((kk, kk), dtype=dtype, device=dev)
+        yty = torch.zeros((kk, kk), dtype=dtype, device=dev)
     new_lbfgs = LBFGSState(
         s_hist=from_kern(s_ring), y_hist=from_kern(y_ring),
-        rho=osc[7:7 + kk].clone(), head=int(osc_h[6]),
-        sty=torch.zeros((kk, kk), dtype=dtype, device=dev),
-        yty=torch.zeros((kk, kk), dtype=dtype, device=dev),
-    )
+        rho=osc[7:7 + kk].clone(), head=int(osc_h[6]), sty=sty, yty=yty)
     carry = InnerCarry(
         R=Rt_o[:r].T.contiguous(), G=G_o[:r].T.contiguous(), y_full=y_full,
         vio_raw=vio_raw, L_val=osc[0], grad_norm=osc[2], lbfgs=new_lbfgs,

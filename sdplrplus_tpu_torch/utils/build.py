@@ -62,13 +62,15 @@ class Built:
         self.seconds, self.cached = seconds, cached
 
 
-def build_cuda(src_name: str) -> Built:
-    """Compile ``csrc/<src_name>`` (if its hash is not built yet) and load
-    it. Raises RuntimeError carrying nvcc's output on failure."""
+def build_cuda(src_name: str, defines: tuple = ()) -> Built:
+    """Compile ``csrc/<src_name>`` with the macros ``defines`` (e.g.
+    ``("K2_TIMING",)``), if that build is not there yet, and load it.
+    Raises RuntimeError carrying nvcc's output on failure."""
     src = os.path.join(CSRC, src_name)
     with open(src, "rb") as f:
         text = f.read()
-    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     stem = os.path.splitext(src_name)[0]
     so = os.path.join(build_dir(), f"lib{stem}_{tag}.so")
     log_path = so + ".log"
@@ -76,7 +78,7 @@ def build_cuda(src_name: str) -> Built:
     cached = os.path.exists(so)
     if not cached:
         tmp = so + f".tmp{os.getpid()}"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+        cmd = [nvcc_path(), *flags, "-o", tmp, src]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
@@ -92,23 +94,23 @@ def build_cuda(src_name: str) -> Built:
 
 
 class CudaLibrary:
-    """``csrc/<source>``, built and loaded at first use, with its entry
-    points typed. Every entry point returns a ``cudaError_t`` (an int);
+    """``csrc/<source>``, built (with the macros ``defines``) and loaded at
+    first use, with its entry points typed. Every entry point returns a ``cudaError_t`` (an int);
     ``call`` raises a RuntimeError on a non-zero one, with the message of
     the library's ``error_fn``. ``on_load(lib)`` runs once, after the
     first load, before the library is used (and raises to refuse it)."""
 
     def __init__(self, source: str, entries: dict, error_fn: str,
-                 on_load=None):
+                 on_load=None, defines: tuple = ()):
         self.source, self.entries, self.error_fn = source, entries, error_fn
-        self.on_load = on_load
+        self.on_load, self.defines = on_load, tuple(defines)
         self._built = None
         self._fns = {}
 
     @property
     def built(self) -> Built:
         if self._built is None:
-            built = build_cuda(self.source)
+            built = build_cuda(self.source, self.defines)
             for name, argtypes in self.entries.items():
                 fn = getattr(built.lib, name)
                 fn.argtypes, fn.restype = argtypes, ctypes.c_int

@@ -163,6 +163,52 @@ def test_armijo_kernel_matches_its_plain_version(h100, family, dtype, steps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("family", ["mu_conductance_ineq",
+                                    "relaxed_maxcut_ineq"])
+def test_armijo_kernel_matches_its_plain_version_step_by_step(h100, family):
+    """K2 against its plain version (run on the card too, from the same
+    inputs) at every step count 0..25 in float64 to 1e-9, with the same α
+    at every step and the Grams SᵀY, YᵀY it returns held as the ring is;
+    in float32 at steps 0 and 1 to K1's tolerance (1e-4)."""
+    r, k = 10, 4
+    for dname, last in (("float64", 25), ("float32", 1)):
+        td = DTYPES[dname]
+        dp, meta, data, spec, R, lam = _armijo_state(family, "cuda", td)
+        sigma = torch.tensor(2.0, dtype=td, device="cuda")
+        as_np = lambda x: x.detach().cpu().double().numpy()
+        for steps in range(last + 1):
+            out = {}
+            for fn in (mk.mega_kernel_armijo, mk.mega_chunk_armijo_plain):
+                args = mk.mega_inputs(spec, r, data, R,
+                                      lbfgs_init(k, dp.n_pad, r, td, "cuda"),
+                                      lam, sigma, 1e-12, float("-inf"), steps)
+                o = fn(spec, *args)
+                torch.cuda.synchronize()
+                out[fn] = (mk.mega_carry(spec, r, meta["m"], meta["pscale"],
+                                         data, lam, sigma,
+                                         *mk.rings_of(spec, args), o),
+                           float(o[3][5]))
+            ((ck, vk), ak), ((cp, vp), ap) = out.values()
+            assert ck.steps == cp.steps == steps and ak == ap
+            tol = 1e-9 if dname == "float64" else 1e-4
+            assert abs(float(ck.L_val) - float(cp.L_val)) \
+                / (abs(float(cp.L_val)) + 1) < tol
+            np.testing.assert_allclose(as_np(ck.R), as_np(cp.R), rtol=tol,
+                                       atol=tol * 10)
+            np.testing.assert_allclose(as_np(ck.vio_raw), as_np(cp.vio_raw),
+                                       rtol=tol, atol=tol * 10)
+            assert abs(float(vk) - float(vp)) < tol * 10
+            if dname == "float64":
+                for a, b in ((ck.lbfgs.s_hist, cp.lbfgs.s_hist),
+                             (ck.lbfgs.y_hist, cp.lbfgs.y_hist),
+                             (ck.lbfgs.sty, cp.lbfgs.sty),
+                             (ck.lbfgs.yty, cp.lbfgs.yty)):
+                    ref = np.max(np.abs(as_np(b)))
+                    assert np.max(np.abs(as_np(a) - as_np(b))) <= 1e-5 * ref
+                assert ck.lbfgs.head == cp.lbfgs.head
+
+
+@pytest.mark.cuda
 def test_mucond_solve_on_the_card_runs_k2(h100):
     A = problems.make_random_graph(200, 0.5, seed=1)
     C, As, b, ct = problems.mu_conductance_ineq(A, 0.1)
@@ -263,6 +309,15 @@ def test_spmm_and_a_fast_diagonal_solve_run_the_gather_kernel(h100):
         out[device] = spmm_C(dp, torch.tensor(X, device=device)).cpu()
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-12,
                                atol=1e-12)
+    # one gather_rows launch per SpMM, over tier 1 and tier 2 together
+    dp = to_device(cp, torch.float32, "cuda")
+    assert dp.has_ell2
+    Xc = torch.tensor(X, dtype=torch.float32, device="cuda")
+    before = ga.ROWS.launches
+    for _ in range(3):
+        spmm_C(dp, Xc)
+    torch.cuda.synchronize()
+    assert ga.ROWS.launches == before + 3
     kw = dict(ptol=1e-2, objtol=1e-2, prior_trace_bound=3000.0,
               dtype="float32", seed=0, printlevel=0, lanczos_block=16,
               dense_mode=False)

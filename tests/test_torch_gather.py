@@ -28,9 +28,11 @@ from sdplrplus_tpu.ops.spmm import spmm_C as j_spmm_C, spmm_ell as j_spmm_ell
 from sdplrplus_tpu.problem import SDPProblem as JProblem
 from sdplrplus_tpu_torch import probes
 from sdplrplus_tpu_torch.compile import compile_problem
+from sdplrplus_tpu_torch.convert import device_problem_from_numpy
 from sdplrplus_tpu_torch.models import maxcut, synthetic_graph
 from sdplrplus_tpu_torch.ops import gather
 from sdplrplus_tpu_torch.ops.device import to_device
+from sdplrplus_tpu_torch.ops import spmm as spmm_mod
 from sdplrplus_tpu_torch.ops.spmm import spmm_C, spmm_ell
 from sdplrplus_tpu_torch.problem import SDPProblem
 
@@ -222,8 +224,8 @@ def test_cuda_library_raises_on_an_error_code(monkeypatch):
     from sdplrplus_tpu_torch.utils import build
 
     libc = ctypes.CDLL(ctypes.util.find_library("c"))
-    monkeypatch.setattr(build, "build_cuda",
-                        lambda src: build.Built(libc, src, "", 0.0, True))
+    monkeypatch.setattr(build, "build_cuda", lambda src, defines=():
+                        build.Built(libc, src, "", 0.0, True))
     loaded = []
     lib = build.CudaLibrary("stand_in.cu", {"abs": [ctypes.c_int]},
                             "strerror", on_load=loaded.append)
@@ -233,8 +235,8 @@ def test_cuda_library_raises_on_an_error_code(monkeypatch):
     assert loaded == [libc] and lib.built.path == "stand_in.cu"
 
 
-def _both_spmm(n, deg, r, seed=0):
-    A = synthetic_graph(n, deg, seed=1)
+def _both_spmm(n, deg, r, seed=0, graph=None):
+    A = synthetic_graph(n, deg, seed=1) if graph is None else graph
     C, As, b = maxcut(A)
     tdp = to_device(compile_problem(SDPProblem(C, As, np.asarray(b, float),
                                                None), dense=False),
@@ -269,3 +271,59 @@ def test_spmm_ell_matches_the_jax_package():
     want1 = np.asarray(j_spmm_ell(jnp.asarray(X), jdp.ell_cols,
                                   jdp.cell_val))
     np.testing.assert_allclose(tier1, want1, rtol=1e-12, atol=1e-12)
+
+
+def _regular_graph(n, deg):
+    """A circulant graph: every node has degree ``deg``, so the ELL layout
+    has no tier 2."""
+    import scipy.sparse as sp
+    rows = np.repeat(np.arange(n), deg)
+    offs = np.tile(np.concatenate([np.arange(1, deg // 2 + 1),
+                                   -np.arange(1, deg // 2 + 1)]), n)
+    A = sp.csr_matrix((np.ones(n * deg), (rows, (rows + offs) % n)),
+                      shape=(n, n))
+    return A
+
+
+@pytest.mark.parametrize("tier2", [True, False])
+def test_one_gather_spmm_matches_the_jax_package(tier2, monkeypatch):
+    """spmm_C and spmm_ell gather the rows of both ELL tiers in one call
+    at the problem's concatenated column ids (``ell_ids``) and equal the
+    JAX package's spmm_ell in float64, with and without a tier 2."""
+    graph = None if tier2 else _regular_graph(500, 8)
+    tdp, jdp, X = _both_spmm(500, 16, 10, seed=4, graph=graph)
+    assert tdp.has_ell2 == tier2
+    calls = []
+
+    def counted(X_, idx, q=1):
+        calls.append(idx.numel())
+        return gather.gather_rows_plain(X_, idx, q)
+
+    monkeypatch.setattr(spmm_mod, "gather_rows", counted)
+    Xt = torch.tensor(X)
+    args = (tdp.ell2_rows, tdp.ell2_cols, tdp.cell2_val) if tier2 else ()
+    jargs = (jdp.ell2_rows, jdp.ell2_cols, jdp.cell2_val) if tier2 else ()
+    want = np.asarray(j_spmm_ell(jnp.asarray(X), jdp.ell_cols, jdp.cell_val,
+                                 *jargs))
+    n_ids = tdp.ell_ids.numel() if tier2 else tdp.ell_cols.numel()
+    for got in (spmm_C(tdp, Xt),
+                spmm_ell(Xt, tdp.ell_cols, tdp.cell_val, *args,
+                         ids=tdp.ell_ids[:n_ids]),
+                spmm_ell(Xt, tdp.ell_cols, tdp.cell_val, *args)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12,
+                                   atol=1e-12)
+    assert calls == [n_ids] * 3      # one gather per SpMM
+
+
+def test_concatenated_ids_are_built_alike():
+    """The SpMM's one index vector, tier-1 column ids then tier-2's, is
+    built once with the problem, by to_device and by convert.py alike."""
+    tdp, jdp, _ = _both_spmm(600, 16, 10)
+    assert tdp.has_ell2
+    fields = {f: getattr(jdp, f) for f in jdp.__dataclass_fields__}
+    cdp = device_problem_from_numpy(fields, torch.float64)
+    want = np.concatenate([np.asarray(jdp.ell_cols).reshape(-1),
+                           np.asarray(jdp.ell2_cols).reshape(-1)])
+    for dp in (tdp, cdp):
+        assert dp.ell_ids.dtype == torch.int64
+        np.testing.assert_array_equal(dp.ell_ids.numpy(), want)

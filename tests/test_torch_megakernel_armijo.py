@@ -1,5 +1,7 @@
 """K2, the Armijo inner-loop megakernel: its plain version against the
-JAX package's Pallas kernel ``_make_kernel_armijo`` run in interpret mode.
+JAX package's Pallas kernel ``_make_kernel_armijo`` run in interpret mode,
+and against the JAX package's XLA Armijo inner loop in the compact L-BFGS
+form, which K2 and its plain version follow.
 
 On the CPU ``mega_chunk`` runs ``mega_chunk_armijo_plain``, K2's loop
 written step by step in torch; the CUDA kernel itself only runs on an
@@ -17,6 +19,7 @@ import torch
 
 from sdplrplus_tpu.ops.megakernel import make_mega_inner_chunk
 from sdplrplus_tpu.solver.al import al_value_grad as j_al_value_grad
+from sdplrplus_tpu.solver.inner import inner_chunk as j_inner_chunk
 from sdplrplus_tpu.solver.lbfgs import lbfgs_init as j_lbfgs_init
 
 from sdplrplus_tpu_torch.ops import megakernel as mk
@@ -81,6 +84,40 @@ def test_entry_state_matches_the_sharp_al_oracle(case):
                                    atol=1e-12, err_msg=name)
     np.testing.assert_allclose(_np(ct.vio_raw), np.asarray(cj.vio_raw),
                                rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", FAMILIES)
+@pytest.mark.parametrize("steps", [1, 25])
+def test_plain_version_matches_the_compact_xla_loop(case, steps):
+    """K2's plain version (the compact direction on Grams built from the
+    ring at entry and refreshed on every push) against the JAX package's
+    XLA Armijo inner loop with ``lbfgs_compact=True`` in float64, k = 4;
+    the Grams it returns equal those ``lbfgs_push`` kept."""
+    k = 4
+    dp_j, _, _, _, t_run, R0, lam = _both(case, "float64", k)
+    r = R0.shape[1]
+    f = lambda x: jnp.asarray(x, jnp.float64)
+    L0, vio0, G0, y0, gn0, _ = j_al_value_grad(dp_j, f(R0), f(lam), f(2.0),
+                                               True, True)
+    cj, vj = j_inner_chunk(
+        dp_j, f(R0), G0, y0, vio0, L0, gn0,
+        j_lbfgs_init(k, dp_j.n_pad, r, jnp.float64), f(lam), f(2.0),
+        f(1e-12), f(-np.inf), steps, k=k, use_armijo=True,
+        gtol_relative=True, ptol_relative=True, lbfgs_compact=True)
+    ct, vt = t_run(R0, lam, 1e-12, -np.inf, steps)
+    assert ct.steps == int(cj.steps) == steps
+    assert ct.stagnated == bool(cj.stagnated)
+    tol = 1e-9
+    for name in ("R", "G", "vio_raw", "y_full", "L_val", "grad_norm"):
+        np.testing.assert_allclose(_np(getattr(ct, name)),
+                                   _np(getattr(cj, name)), rtol=tol,
+                                   atol=tol, err_msg=f"{name} after {steps}")
+    for name in ("s_hist", "y_hist", "rho", "sty", "yty"):
+        np.testing.assert_allclose(_np(getattr(ct.lbfgs, name)),
+                                   _np(getattr(cj.lbfgs, name)), rtol=tol,
+                                   atol=tol, err_msg=name)
+    assert ct.lbfgs.head == int(cj.lbfgs.head)
+    assert abs(float(vt) - float(vj)) < tol
 
 
 @pytest.mark.parametrize("case", FAMILIES)
