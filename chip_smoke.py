@@ -10,16 +10,20 @@ from the sources in the checkout and runs these phases, one line each:
   1. device   the card, its compute capability (must be 9.0), its name
               and power limit as nvidia-smi reports them, the TF32 flags;
   2. build    nvcc of csrc/megakernel.cu (K1), csrc/megakernel_armijo.cu
-              (K2), csrc/gather.cu (the gather kernels) and the two timing
-              builds of phase 8 (K2 and megakernel_armijo_twoloop.cu, K2's
-              design before the compact redesign, with -DK2_TIMING), all
+              (K2), csrc/gather.cu (the gather kernels) and the four timing
+              builds of phases 5 and 8 (K1 and megakernel_twoloop.cu, K1's
+              design before the compact redesign, with -DK1_TIMING; K2 and
+              megakernel_armijo_twoloop.cu with -DK2_TIMING), all seven
               started together, in seconds, and what ptxas reports of
               their registers and spills;
   3. K1       the inner-loop megakernel against its plain PyTorch version
-              on the same inputs on the card: float32 and float64, 1 and
-              25 steps, the gtol exit and the ring round trip, on a
-              G1-shaped MaxCut (n_pad 896), MinBisection on the same
-              graph (one low-rank term) and a G22-shaped MaxCut
+              on the same inputs on the card: float64 at every step count
+              0..25 to 1e-9 (R, G, the ring, and the ring's Grams SᵀY and
+              YᵀY that K1 returns), float32 at 1 and 25 steps, the gtol
+              exit, the ring round trip, and 5 steps from a ring the
+              two-loop design left (3 of 4 slots filled, its Grams not
+              kept), on a G1-shaped MaxCut (n_pad 896), MinBisection on
+              the same graph (one low-rank term) and a G22-shaped MaxCut
               (n_pad 2048), all at rank 10;
   4. slice    the main path: sdplr(...) on the G1-shaped MaxCut in
               float32, with every launch count set to 0 just before and
@@ -29,7 +33,12 @@ from the sources in the checkout and runs these phases, one line each:
               K1 per iteration (the slope between 100 and 2000 steps with
               gtol -1 and the stagnation test off), its plain version's
               and the torch inner loop's per iteration, the bound, and the
-              warm solve's seconds after one warm-up solve;
+              warm solve's seconds after one warm-up solve; then K1's time
+              per iteration by phase from the timing builds (block 0's
+              %globaltimer sums over a 2000-step launch, in turns two-loop,
+              compact, compact, two-loop), before the redesign (the
+              two-loop baseline) and after, with each design's grid
+              barriers per iteration (2k + 3 = 11 before, at most 3 after);
   6. K2       the Armijo megakernel against its plain version at every
               step count 0..25 (float64 to 1e-9; float32 to K1's
               tolerances, on μ-conductance at steps 0 and 1 only, see the
@@ -62,7 +71,8 @@ from the sources in the checkout and runs these phases, one line each:
               and float64, int64 and int32 ids) and at the probes' shapes (1
               and 8 rows per index) and at the SpMM's one index vector
               (tier-1 then tier-2 ids, DeviceProblem.ell_ids); gather_window at span/bucket (128, 512)
-              and (1024, 512); gather_lanes on (8, 128) and (32, 1024) tiles
+              and (1024, 512), and at r = 10 with int64 ids;
+              gather_lanes on (8, 128) and (32, 1024) tiles
               and the (8·512, 1024) grid; then the probe entry points
               (sdplrplus_tpu_torch/probes.py) at the probes' shapes, with the
               launch counts set to 0 before and read after;
@@ -206,7 +216,8 @@ def main():
         built = kern.built
         return kern, built, time.time() - t0
 
-    libs = (mk.K1, mk.K2, ga.ROWS, mk.K2_TIMED, mk.K2_TWOLOOP_TIMED)
+    libs = (mk.K1, mk.K2, ga.ROWS, mk.K1_TIMED, mk.K1_TWOLOOP_TIMED,
+            mk.K2_TIMED, mk.K2_TWOLOOP_TIMED)
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         builds = list(pool.map(build, libs))
     for kern, built, build_s in builds:
@@ -216,6 +227,23 @@ def main():
         say("build", f"{label}: {os.path.relpath(built.path)} in "
             f"{build_s:.1f} s (cached={built.cached}); ptxas: "
             f"{' / '.join(ptxas)}")
+
+    def phase_breakdown(phase_runs):
+        """{design: µs per iteration (sum of phases), grid barriers per
+        iteration, entry barriers, µs per phase} from phase_times' turns,
+        the median of each design's turns."""
+        out = {}
+        for who, runs in phase_runs.items():
+            per = {ph: statistics.median(r[0][ph] for r in runs)
+                   for ph in runs[0][0]}
+            bars = {r[1] for r in runs}
+            assert len(bars) == 1, (who, bars)
+            out[who] = dict(us_per_iteration=round(sum(per.values()), 3),
+                            barriers_per_iteration=bars.pop(),
+                            entry_barriers=runs[0][2],
+                            phases_us={k_: round(v, 3)
+                                       for k_, v in per.items()})
+        return out
 
     def zero_counts():
         for kern in (mk.K1, mk.K2) + ga.KERNELS:
@@ -282,43 +310,54 @@ def main():
     # Fixed-step comparisons run with the stagnation test off (-inf): a
     # tolerance of 0 still stops a float32 run once the line search's
     # predicted decrease rounds to <= 0 near convergence, and that step
-    # differs between two correct float32 summation orders.
+    # differs between two correct float32 summation orders. float64 is
+    # held at every step count 0..25 (each from the same start state);
+    # float32 at 1 and 25 steps, where the compact form and its plain
+    # version may round apart but stay within K1's tolerances.
     ninf = float("-inf")
     worst = {}
+
+    def check_k1(label, dname, st, ck, vk, cp, vp):
+        assert ck.steps == cp.steps == st, (ck.steps, cp.steps, st)
+        tol = (1e-4 if st <= 1 else 3e-3) if dname == "float32" else 1e-9
+        Lk, Lp = float(ck.L_val), float(cp.L_val)
+        assert np.isfinite(Lk) and abs(Lk - Lp) / (abs(Lp) + 1) < tol, \
+            (label, dname, st, Lk, Lp)
+        np.testing.assert_allclose(as_np(ck.R), as_np(cp.R), rtol=tol,
+                                   atol=tol * 10)
+        np.testing.assert_allclose(as_np(ck.vio_raw), as_np(cp.vio_raw),
+                                   rtol=tol, atol=tol * 10)
+        assert abs(float(vk) - float(vp)) < tol * 10
+        assert abs(float(ck.grad_norm) - float(cp.grad_norm)) \
+            / (float(cp.grad_norm) + 1e-9) < 0.05
+        if dname == "float64":
+            for a, b_ in ((ck.G, cp.G), (ck.lbfgs.s_hist, cp.lbfgs.s_hist),
+                          (ck.lbfgs.y_hist, cp.lbfgs.y_hist)):
+                np.testing.assert_allclose(as_np(a), as_np(b_), rtol=tol,
+                                           atol=tol)
+            # the Grams K1 returns, to the ring's tolerance of their
+            # largest entry
+            for a, b_ in ((ck.lbfgs.sty, cp.lbfgs.sty),
+                          (ck.lbfgs.yty, cp.lbfgs.yty)):
+                ref = max(float(np.max(np.abs(as_np(b_)))), 1.0)
+                assert np.max(np.abs(as_np(a) - as_np(b_))) <= tol * ref, \
+                    (label, st, "gram")
+            assert ck.lbfgs.head == cp.lbfgs.head
+        return float(np.max(np.abs(as_np(ck.R) - as_np(cp.R))))
+
     for label, _, _ in cases:
         for dname, dtype in (("float32", torch.float32),
                              ("float64", torch.float64)):
             dp, meta, data, spec, R, lam, sigma = kernel_state(label, dtype)
             lb = lbfgs_init(K, dp.n_pad, RANK, dtype, dev)
+            counts = range(26) if dname == "float64" else (1, 25)
             errs = []
-            for steps in (1, 25):
+            for steps in counts:
                 ck, vk = run_k1("kernel", spec, meta, data, R, lb, lam,
                                 sigma, 1e-12, ninf, steps)
                 cp, vp = run_k1("plain", spec, meta, data, R, lb, lam,
                                 sigma, 1e-12, ninf, steps)
-                assert ck.steps == cp.steps == steps, (ck.steps, cp.steps)
-                tol = (1e-4 if steps == 1 else 3e-3) \
-                    if dname == "float32" else 1e-9
-                Lk, Lp = float(ck.L_val), float(cp.L_val)
-                assert np.isfinite(Lk) and abs(Lk - Lp) / (abs(Lp) + 1) \
-                    < tol, (label, dname, steps, Lk, Lp)
-                err = float(np.max(np.abs(as_np(ck.R) - as_np(cp.R))))
-                np.testing.assert_allclose(as_np(ck.R), as_np(cp.R),
-                                           rtol=tol, atol=tol * 10)
-                np.testing.assert_allclose(as_np(ck.vio_raw),
-                                           as_np(cp.vio_raw), rtol=tol,
-                                           atol=tol * 10)
-                assert abs(float(vk) - float(vp)) < tol * 10
-                assert abs(float(ck.grad_norm) - float(cp.grad_norm)) \
-                    / (float(cp.grad_norm) + 1e-9) < 0.05
-                if dname == "float64":
-                    for a, b_ in ((ck.G, cp.G), (ck.lbfgs.s_hist,
-                                                 cp.lbfgs.s_hist),
-                                  (ck.lbfgs.y_hist, cp.lbfgs.y_hist)):
-                        np.testing.assert_allclose(as_np(a), as_np(b_),
-                                                   rtol=tol, atol=tol)
-                    assert ck.lbfgs.head == cp.lbfgs.head
-                errs.append(err)
+                errs.append(check_k1(label, dname, steps, ck, vk, cp, vp))
             # ring round trip: 5 + 5 steps equal 10
             c5, _ = run_k1("kernel", spec, meta, data, R, lb, lam, sigma,
                            1e-12, ninf, 5)
@@ -333,6 +372,20 @@ def main():
             for other in (c10, p10):
                 np.testing.assert_allclose(as_np(c55.R), as_np(other.R),
                                            rtol=0, atol=rt_tol)
+            # from a ring without Grams, the state the two-loop design
+            # left: 3 steps fill 3 of the 4 slots, then SᵀY and YᵀY are
+            # zeroed; K1 rebuilds them at entry and masks the empty slot
+            c3, _ = run_k1("kernel", spec, meta, data, R, lb, lam, sigma,
+                           1e-12, ninf, 3)
+            assert c3.lbfgs.head == 3 and float(c3.lbfgs.sty.abs().max()) > 0
+            c3.lbfgs.sty.zero_()
+            c3.lbfgs.yty.zero_()
+            ck, vk = run_k1("kernel", spec, meta, data, c3.R, c3.lbfgs, lam,
+                            sigma, 1e-12, ninf, 5)
+            cp, vp = run_k1("plain", spec, meta, data, c3.R, c3.lbfgs, lam,
+                            sigma, 1e-12, ninf, 5)
+            errs.append(check_k1(label + " (ring without Grams)", dname, 5,
+                                 ck, vk, cp, vp))
             # gtol exit: a twentieth of the starting gradient norm
             _, _, _, _, gn0, _ = al_value_grad(dp, R, lam, sigma, True, True)
             gtol = 0.05 * float(gn0)
@@ -346,9 +399,11 @@ def main():
                 assert ce.steps == pe.steps, (ce.steps, pe.steps)
             worst[(label, dname)] = max(errs)
             say("K1", f"{label} n_pad {dp.n_pad} rp {spec.rp} {dname}: "
-                f"1 and 25 steps agree (max |ΔR| {max(errs):.3e}), "
-                f"5+5 = 10 steps, gtol exit after {ce.steps} (plain "
-                f"{pe.steps}) steps")
+                f"steps {'0..25' if dname == 'float64' else '1 and 25'} "
+                f"agree (max |ΔR| {max(errs):.3e}"
+                f"{', Grams included' if dname == 'float64' else ''}), "
+                f"5+5 = 10 steps, 5 steps from a ring without Grams, gtol exit "
+                f"after {ce.steps} (plain {pe.steps}) steps")
 
     # ---- 4. the slice ------------------------------------------------------
     A = g800
@@ -469,6 +524,19 @@ def main():
     torch.cuda.synchronize()
     warm_s = time.time() - t0
     assert res2["primal_vio"] <= 1e-2 and res2["rel_duality_gap"] <= 1e-2
+    # K1 by phase: the timing builds of the two-loop design (before the
+    # redesign) and of the compact one, on the same state, in turns; block
+    # 0's %globaltimer sums over one 2000-step launch, per iteration
+    designs1 = {"two-loop": mk.K1_TWOLOOP_TIMED, "compact": mk.K1_TIMED}
+    k1_runs = {w: [] for w in designs1}
+    for who in ("two-loop", "compact", "compact", "two-loop"):
+        k1_runs[who].append(mk.phase_times(designs1[who], spec, base, 2000))
+    k1_breakdown = phase_breakdown(k1_runs)
+    assert k1_breakdown["compact"]["barriers_per_iteration"] <= 3, \
+        k1_breakdown
+    assert k1_breakdown["two-loop"]["barriers_per_iteration"] \
+        == 2 * K + 3, k1_breakdown
+
     say("times", f"G1 shapes n_pad {n} rp {rp} k {K} float32: K1 "
         f"{med['kernel'][1]:.2f} us/iter (100-step launch "
         f"{med['kernel'][0]:.3f} ms), plain version {med['plain'][1]:.1f} "
@@ -479,6 +547,9 @@ def main():
         f"launches per solve {launches}; warm solve {warm_s:.3f} s "
         f"({res2['iter']} iterations), first solve {cold_s:.3f} s; "
         f"nvidia-smi: {smi}")
+    say("k1phases", f"K1 per iteration by phase (timing builds, block 0's "
+        f"%globaltimer, 2000 steps, median of two turns each), G1-shaped "
+        f"MaxCut float32: {json.dumps(k1_breakdown)}; nvidia-smi: {smi}")
 
     # ---- 6. K2 against its plain version ----------------------------------
     # μ-conductance keeps C sparse (its wide volume constraint), so its
@@ -794,19 +865,9 @@ def main():
     designs = {"two-loop": mk.K2_TWOLOOP_TIMED, "compact": mk.K2_TIMED}
     phase_runs = {w: [] for w in designs}
     for who in ("two-loop", "compact", "compact", "two-loop"):
-        phase_runs[who].append(mk.k2_phase_times(designs[who], spec, base2,
-                                                 2000))
-    breakdown = {}
-    for who, runs in phase_runs.items():
-        per = {ph: statistics.median(r[0][ph] for r in runs)
-               for ph in runs[0][0]}
-        bars = {r[1] for r in runs}
-        assert len(bars) == 1, (who, bars)
-        breakdown[who] = dict(us_per_iteration=round(sum(per.values()), 3),
-                              barriers_per_iteration=bars.pop(),
-                              entry_barriers=runs[0][2],
-                              phases_us={k_: round(v, 3)
-                                         for k_, v in per.items()})
+        phase_runs[who].append(mk.phase_times(designs[who], spec, base2,
+                                              2000))
+    breakdown = phase_breakdown(phase_runs)
     assert breakdown["compact"]["barriers_per_iteration"] <= 3, breakdown
     say("k2phases", f"K2 per iteration by phase (timing builds, block 0's "
         f"%globaltimer, 2000 steps, median of two turns each), "
@@ -872,6 +933,14 @@ def main():
             exact(ga.gather_window(X, wins, offs, span, bucket),
                   ga.gather_window_plain(X, wins, offs, span, bucket),
                   ("P5/P6", span, bucket), "gather_window")
+    # the row template's 8-byte vectors (r = 10) and int64 ids
+    X10 = torch.randn((probes.N, 10), generator=gen).to(dev)
+    w64 = torch.randint(0, probes.N // 128, (probes.T // 512,),
+                        generator=gen).to(dev)
+    o64 = torch.randint(0, 128, (probes.T,), generator=gen).to(dev)
+    exact(ga.gather_window(X10, w64, o64, 128, 512),
+          ga.gather_window_plain(X10, w64, o64, 128, 512),
+          ("window r=10 int64",), "gather_window")
     for S, L in ((8, 128), (32, 1024), (8 * 512, 1024)):
         for dt in (torch.float32, torch.float64):
             Xl = torch.randn((S, L), generator=gen, dtype=dt).to(dev)
@@ -916,7 +985,8 @@ def main():
         f"and int32 ids, and at "
         f"the probes' shapes (X ({probes.N}, 16/32), T = {probes.T}, 1 and "
         f"8 rows per index); gather_window exact at span/bucket (128, 512) "
-        f"and (1024, 512); gather_lanes exact on (8, 128), (32, 1024) and "
+        f"and (1024, 512) at r = 16 and 32, and at r = 10 with int64 ids; "
+        f"gather_lanes exact on (8, 128), (32, 1024) and "
         f"(4096, 1024) in float32 and float64; probe entry points P1-P8 "
         f"launched {probe_launches}; SYN20K compile_problem {compile_s:.2f} "
         f"s")

@@ -30,7 +30,10 @@
 // about 10.7 us at the card's 3.35 TB/s.
 //
 // What the design does about it:
-//   * gather_rows moves whole rows with vector loads and stores as wide as
+//   * gather_rows and gather_window are one row-gather template whose
+//     source row comes from a small index functor: idx[e]*q + j for
+//     gather_rows, wins[t / bucket]*span + offs[t] for gather_window. The
+//     kernel moves whole rows with vector loads and stores as wide as
 //     the row allows: 16 B where the row's bytes and both arrays' addresses
 //     are multiples of 16, else 8 B, else 4 B (r = 10 float32 rows of 40 B
 //     move as 8 B vectors, r = 20 rows of 80 B as 16 B vectors). A row
@@ -43,10 +46,11 @@
 //     with streaming stores (__stcs). The one division (lane by vpr) is
 //     done once per thread. Rows wider than 32 vectors take a warp each,
 //     its lanes stepping along the row. On the solver's path the SpMM
-//     gathers tier 1 and tier 2 in one launch (ops/spmm.py);
-//   * gather_window is the flat form: one thread per output element over
-//     a grid-stride loop, 32-bit offsets where they fit, the window's base
-//     read through the read-only path (__ldg);
+//     gathers tier 1 and tier 2 in one launch (ops/spmm.py). A window
+//     gather takes the same scheme: 4 lanes per row at r = 16 float32,
+//     8 at r = 32, the window base read once per row (the lanes of one
+//     row, and the rows of one tile, share the load), 32-bit offsets
+//     where they fit;
 //   * gather_lanes stages one row of X in shared memory when it fits in
 //     48 KB and every lookup of that row reads shared memory; a longer
 //     row is read straight from global memory (L2).
@@ -70,16 +74,6 @@ constexpr int NT = 256;                    // threads per block
 constexpr int MAX_BLOCKS = 132 * 16;       // grid-stride cap: 16 per SM
 constexpr int LANE_SMEM_BYTES = 48 * 1024;  // gather_lanes' staged row
 
-template <typename Off>
-__device__ __forceinline__ Off flat_start() {
-  return (Off)blockIdx.x * (Off)blockDim.x + (Off)threadIdx.x;
-}
-
-template <typename Off>
-__device__ __forceinline__ Off flat_stride() {
-  return (Off)gridDim.x * (Off)blockDim.x;
-}
-
 constexpr int ROWS_UNROLL = 4;   // rows in flight per lane
 
 // a vector V of NaNs of type T (V: int, int2 or int4, as raw bits)
@@ -94,15 +88,39 @@ __device__ __forceinline__ V nan_vec() {
   return v;
 }
 
-// out row t (of rows = E*q) = X row idx[t / q]*q + t % q, moved as vpr
-// vectors V per row. Sub-warps of vpr lanes per row, rpw = 32 / vpr rows
-// per warp, ROWS_UNROLL row groups per warp in flight; vpr > 32: one row
-// per warp, lanes stepping along it.
-template <typename T, typename V, typename I, typename Off>
+// The source rows, as 64-bit row numbers (the range test is made in 64
+// bits, so no index wraps into range): out row t of a row gather is X row
+// idx[t / q]*q + t % q ...
+template <typename I, typename Off>
+struct RowIndex {
+  const I* idx;
+  Off q;
+  __device__ __forceinline__ unsigned long long operator()(Off row) const {
+    const Off e = q == 1 ? row : row / q;
+    return (unsigned long long)(long long)__ldg(idx + e) * q + (row - e * q);
+  }
+};
+
+// ... and of a window gather X row wins[t / bucket]*span + offs[t].
+template <typename I, typename Off>
+struct WindowIndex {
+  const I* wins;
+  const I* offs;
+  Off span, bucket;
+  __device__ __forceinline__ unsigned long long operator()(Off row) const {
+    return (unsigned long long)(long long)__ldg(wins + row / bucket) * span +
+           (unsigned long long)(long long)__ldg(offs + row);
+  }
+};
+
+// out row t (of rows) = X row src(t), moved as vpr vectors V per row.
+// Sub-warps of vpr lanes per row, rpw = 32 / vpr rows per warp,
+// ROWS_UNROLL row groups per warp in flight; vpr > 32: one row per warp,
+// lanes stepping along it.
+template <typename T, typename V, typename Src, typename Off>
 __global__ void __launch_bounds__(NT)
-gather_rows_kernel(const V* __restrict__ X, const I* __restrict__ idx,
-                   V* __restrict__ out, Off rows, int vpr, Off q,
-                   Off n_rows) {
+gather_rows_kernel(const V* __restrict__ X, Src src_of, V* __restrict__ out,
+                   Off rows, int vpr, Off n_rows) {
   const int lane = threadIdx.x & 31;
   const int rpw = vpr <= 32 ? 32 / vpr : 1;
   const int rw = vpr <= 32 ? lane / vpr : 0;
@@ -120,11 +138,7 @@ gather_rows_kernel(const V* __restrict__ X, const I* __restrict__ idx,
       const Off g = g0 + u * tw;
       row[u] = g * rpw + rw;
       src[u] = ~0ULL;
-      if (active && g < ngroups && row[u] < rows) {
-        const Off e = q == 1 ? row[u] : row[u] / q;
-        // the range test in 64 bits, so no index wraps into range
-        src[u] = (unsigned long long)(long long)__ldg(idx + e) * q + (row[u] - e * q);
-      }
+      if (active && g < ngroups && row[u] < rows) src[u] = src_of(row[u]);
     }
     if (vpr <= 32) {
       V val[ROWS_UNROLL];
@@ -149,23 +163,6 @@ gather_rows_kernel(const V* __restrict__ X, const I* __restrict__ idx,
                  ok ? __ldg(X + (Off)src[u] * vpr + cc) : nanv);
       }
     }
-  }
-}
-
-template <typename T, typename I, typename Off>
-__global__ void __launch_bounds__(NT)
-gather_window_kernel(const T* __restrict__ X, const I* __restrict__ wins,
-                     const I* __restrict__ offs, T* __restrict__ out,
-                     Off total, Off r, Off span, Off bucket, Off n_rows) {
-  for (Off t = flat_start<Off>(); t < total; t += flat_stride<Off>()) {
-    const Off row = t / r;
-    const Off col = t - row * r;
-    const Off tile = row / bucket;
-    // the tile's window base plus the offset, range-tested in 64 bits
-    const unsigned long long src =
-        (unsigned long long)(long long)__ldg(wins + tile) * span
-        + (unsigned long long)(long long)__ldg(offs + row);
-    out[t] = src < n_rows ? __ldg(X + (Off)src * r + col) : (T)NAN;
   }
 }
 
@@ -206,58 +203,58 @@ int grid_for(long long total) {
   return blocks < 1 ? 1 : (int)blocks;
 }
 
-template <typename T, typename V, typename I>
-int rows_launch_v(const void* X, long long n_rows, const void* idx, void* out,
-                  long long rows, int vpr, int q, cudaStream_t st) {
+// The source-row functor of a launch at offset type Off: a row gather's
+// (idx, q) or a window gather's (wins, offs, span, bucket).
+template <typename I>
+struct RowArgs {
+  const void* idx;
+  long long q;
+  template <typename Off>
+  RowIndex<I, Off> at() const { return {(const I*)idx, (Off)q}; }
+};
+
+template <typename I>
+struct WindowArgs {
+  const void *wins, *offs;
+  long long span, bucket;
+  template <typename Off>
+  WindowIndex<I, Off> at() const {
+    return {(const I*)wins, (const I*)offs, (Off)span, (Off)bucket};
+  }
+};
+
+template <typename T, typename V, typename A>
+int rows_launch_v(const void* X, long long n_rows, const A& src, void* out,
+                  long long rows, int vpr, cudaStream_t st) {
   const int rpw = vpr <= 32 ? 32 / vpr : 1;
   const long long groups = (rows + rpw - 1) / rpw;
   const int grid = grid_for((groups + ROWS_UNROLL - 1) / ROWS_UNROLL * 32);
   if (rows * vpr < (1LL << 31) && n_rows * vpr < (1LL << 31))
-    gather_rows_kernel<T, V, I, uint32_t><<<grid, NT, 0, st>>>(
-        (const V*)X, (const I*)idx, (V*)out, (uint32_t)rows, vpr,
-        (uint32_t)q, (uint32_t)n_rows);
+    gather_rows_kernel<T, V><<<grid, NT, 0, st>>>(
+        (const V*)X, src.template at<uint32_t>(), (V*)out, (uint32_t)rows,
+        vpr, (uint32_t)n_rows);
   else
-    gather_rows_kernel<T, V, I, uint64_t><<<grid, NT, 0, st>>>(
-        (const V*)X, (const I*)idx, (V*)out, (uint64_t)rows, vpr,
-        (uint64_t)q, (uint64_t)n_rows);
+    gather_rows_kernel<T, V><<<grid, NT, 0, st>>>(
+        (const V*)X, src.template at<uint64_t>(), (V*)out, (uint64_t)rows,
+        vpr, (uint64_t)n_rows);
   return (int)cudaGetLastError();
 }
 
-// the widest vector (16, 8 or 4 bytes) that divides the row and both
-// arrays' addresses
-template <typename T, typename I>
-int rows_launch(const void* X, long long n_rows, const void* idx, void* out,
-                long long E, int r, int q, cudaStream_t st) {
+// out (rows, r): the widest vector (16, 8 or 4 bytes) that divides the
+// row and both arrays' addresses
+template <typename T, typename A>
+int rows_launch(const void* X, long long n_rows, const A& src, void* out,
+                long long rows, int r, cudaStream_t st) {
   const long long row_bytes = (long long)r * sizeof(T);
   const unsigned long long al = (unsigned long long)X | (unsigned long long)out;
-  const long long rows = E * q;
   if (row_bytes % 16 == 0 && al % 16 == 0)
-    return rows_launch_v<T, int4, I>(X, n_rows, idx, out, rows,
-                                     (int)(row_bytes / 16), q, st);
+    return rows_launch_v<T, int4>(X, n_rows, src, out, rows,
+                                  (int)(row_bytes / 16), st);
   if (row_bytes % 8 == 0 && al % 8 == 0)
-    return rows_launch_v<T, int2, I>(X, n_rows, idx, out, rows,
-                                     (int)(row_bytes / 8), q, st);
-  return rows_launch_v<T, int, I>(X, n_rows, idx, out, rows,
-                                  (int)(row_bytes / 4), q, st);
-}
-
-template <typename T, typename I>
-int window_launch(const void* X, long long n_rows, const void* wins,
-                  const void* offs, void* out, long long rows, int r,
-                  int span, int bucket, cudaStream_t st) {
-  const long long total = rows * r;
-  const int grid = grid_for(total);
-  if (total < (1LL << 31) && n_rows * r < (1LL << 31))
-    gather_window_kernel<T, I, uint32_t><<<grid, NT, 0, st>>>(
-        (const T*)X, (const I*)wins, (const I*)offs, (T*)out,
-        (uint32_t)total, (uint32_t)r, (uint32_t)span, (uint32_t)bucket,
-        (uint32_t)n_rows);
-  else
-    gather_window_kernel<T, I, uint64_t><<<grid, NT, 0, st>>>(
-        (const T*)X, (const I*)wins, (const I*)offs, (T*)out,
-        (uint64_t)total, (uint64_t)r, (uint64_t)span, (uint64_t)bucket,
-        (uint64_t)n_rows);
-  return (int)cudaGetLastError();
+    return rows_launch_v<T, int2>(X, n_rows, src, out, rows,
+                                  (int)(row_bytes / 8), st);
+  return rows_launch_v<T, int>(X, n_rows, src, out, rows,
+                               (int)(row_bytes / 4), st);
 }
 
 template <typename T, typename I>
@@ -282,13 +279,16 @@ int gather_rows(const void* X, long long n_rows, const void* idx, void* out,
                 long long E, int r, int q, int is_double, int idx64,
                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const long long rows = E * q;
   if (is_double)
-    return idx64 ? rows_launch<double, long long>(X, n_rows, idx, out, E, r,
-                                                  q, st)
-                 : rows_launch<double, int>(X, n_rows, idx, out, E, r, q, st);
-  return idx64 ? rows_launch<float, long long>(X, n_rows, idx, out, E, r, q,
-                                               st)
-               : rows_launch<float, int>(X, n_rows, idx, out, E, r, q, st);
+    return idx64 ? rows_launch<double>(X, n_rows, RowArgs<long long>{idx, q},
+                                       out, rows, r, st)
+                 : rows_launch<double>(X, n_rows, RowArgs<int>{idx, q}, out,
+                                       rows, r, st);
+  return idx64 ? rows_launch<float>(X, n_rows, RowArgs<long long>{idx, q}, out,
+                                    rows, r, st)
+               : rows_launch<float>(X, n_rows, RowArgs<int>{idx, q}, out, rows,
+                                    r, st);
 }
 
 // out (rows, r) with rows = len(wins)*bucket; wins and offs share one
@@ -298,16 +298,13 @@ int gather_window(const void* X, long long n_rows, const void* wins,
                   int span, int bucket, int is_double, int idx64,
                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const WindowArgs<long long> w64{wins, offs, span, bucket};
+  const WindowArgs<int> w32{wins, offs, span, bucket};
   if (is_double)
-    return idx64 ? window_launch<double, long long>(X, n_rows, wins, offs,
-                                                    out, rows, r, span,
-                                                    bucket, st)
-                 : window_launch<double, int>(X, n_rows, wins, offs, out,
-                                              rows, r, span, bucket, st);
-  return idx64 ? window_launch<float, long long>(X, n_rows, wins, offs, out,
-                                                 rows, r, span, bucket, st)
-               : window_launch<float, int>(X, n_rows, wins, offs, out, rows,
-                                           r, span, bucket, st);
+    return idx64 ? rows_launch<double>(X, n_rows, w64, out, rows, r, st)
+                 : rows_launch<double>(X, n_rows, w32, out, rows, r, st);
+  return idx64 ? rows_launch<float>(X, n_rows, w64, out, rows, r, st)
+               : rows_launch<float>(X, n_rows, w32, out, rows, r, st);
 }
 
 // out (S, L) = X (S, L) taken along each row at idx (S, L).

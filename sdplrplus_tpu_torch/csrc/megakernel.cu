@@ -2,74 +2,89 @@
 // launch, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel sdplrplus_tpu/ops/megakernel.py::_make_kernel
-// (launched by _call_kernel). Same inputs and outputs as _call_kernel; the
-// Python wrapper is sdplrplus_tpu_torch/ops/megakernel.py::mega_chunk, and
-// mega_chunk_plain in the same module is this loop written step by step in
-// torch.
+// (launched by _call_kernel). Same inputs and outputs as _call_kernel, plus
+// the ring's Gram matrices S'Y and Y'Y; the Python wrapper is
+// sdplrplus_tpu_torch/ops/megakernel.py::mega_chunk, and mega_chunk_plain
+// in the same module is this loop written step by step in torch, with the
+// same compact direction and Gram bookkeeping.
 //
 // What it computes, per iteration (up to max_steps; exits on ||G|| <= gtol,
 // the step budget, or fprec stagnation):
-//   1. the two-loop L-BFGS direction over the k-slot (s, y) ring, with a -G
-//      fallback when it is not a descent direction;
+//   1. the L-BFGS direction D = -H.G in the Byrd-Nocedal-Schnabel compact
+//      form (sdplrplus_tpu/solver/lbfgs.py::_direction_compact, the JAX
+//      package's default): with p = [S'g; Y'g] and the k x k Grams S'Y and
+//      Y'Y in age order, u = R^-1 S'g, v = D u + Y'Y u - Y'g,
+//      w = [R^-T v; -u] and D = -(g + [S Y] w); empty slots (rho = 0) are
+//      masked with a unit diagonal. D = -G when <G, D> = -(g'g + w'p) is
+//      not negative or NaN;
 //   2. CDt = D.C, the one n_pad^2 product;
-//   3. p1, p2, per-column q1 and q2, the Gram of [lam, vio, q1, q2] and the
-//      low-rank contractions D.B;
+//   3. p1, p2, per-column q1 = 2 w sum_r R.D and q2 = w sum_r D.D, the
+//      Gram of [lam, vio, q1, q2] and the low-rank contractions D.B;
 //   4. the exact quartic line search (closed-form cubic + one Newton polish
-//      of each stationary point);
+//      of each stationary point), solved by every thread from the same
+//      totals;
 //   5. the algebraic commit (vio, obj, Rt, CRt += alpha.CDt, Q), the
-//      gradient, ||G||, the stagnation test and the ring push.
+//      gradient, the stagnation test and the ring push (skipped on
+//      stagnation), with every partial the next direction needs: ||G||^2,
+//      S'g and Y'g over the ring after the push, and the pushed slot's row
+//      and column of S'Y and Y'Y (their [j, j] entry is y's, rho = 1/y's).
+// At entry the kernel recomputes L, G and the violations from R, and the
+// Grams from the ring (their partials ride the entry's gradient barrier),
+// so it takes any LBFGSState the major loop holds.
 //
 // What bounds it. Per iteration D.C is 2.rp.n_pad^2 FP32 (or FP64) FLOPs:
 // 25.7 MFLOP at n_pad = 896 and rp = 16, about 0.38 us at the card's
 // 67 TFLOP/s. C is read once per launch (it stays in the 50 MB L2:
-// 3.2 MB f32 at n_pad = 896, 16.8 MB at 2048). The real limit of this first
-// version is latency: every dot is a reduction across the whole grid, and
-// the iteration needs 2k + 3 grid-wide barriers (k for each half of the
-// two-loop recursion, then the descent test, the line-search dots and the
-// gradient norm), plus two at entry.
+// 3.2 MB f32 at n_pad = 896, 16.8 MB at 2048). The real limit is latency:
+// every dot is a reduction across the whole grid. The first, two-loop
+// design paid 2k + 3 = 11 grid barriers per iteration at k = 4, re-read
+// the ring from L2 in every dot and streamed C and D through shared memory
+// in 64-wide synchronous chunks (megakernel_twoloop.cu keeps it, for
+// timing).
 //
-// What the design does about it:
-//   * one persistent cooperative grid (one block per SM) for the whole
-//     activation, so there is one launch per inner activation and no host
-//     synchronisation inside it; all state stays on the card;
-//   * each block owns a slab of S = ceil(n_pad / #SMs) columns of Rt, G,
-//     CRt, D, the ring, vio, q1 and q2; C is symmetric, so a block forms
-//     CDt[:, slab] from the contiguous rows C[slab, :], staging D and C
-//     through shared memory in chunks of the n axis;
-//   * every dot of a phase is batched behind one grid.sync(): each block
-//     writes its partials to a double-buffered global array, and after the
-//     barrier every block sums all partials in the same fixed order, so all
-//     scalars (the dots, alpha, the stagnation flag, the loop exit) are
-//     bitwise identical in every block. No atomics: a block that decided
-//     differently would wait at the next barrier forever;
-//   * plain FP32 (FP64) FMAs, no tensor cores, so no dot is ever TF32.
+// What this design does about it (K2's, csrc/megakernel_armijo.cu, whose
+// device code it shares through megakernel_common.cuh):
+//   * 3 grid barriers per iteration, whatever k: (a) publish D, (b) the
+//     line-search partials (2 p1, p2, the 9 Gram entries of
+//     [lam, v, q1, q2] and the rp x lrc low-rank contractions), (c) the
+//     gradient partials, which also carry every dot of the next direction.
+//     After (c) thread 0 of every block solves the k x k triangular
+//     systems in the same fixed order, after (b) every thread solves the
+//     same quartic from the same totals, so every scalar (alpha, the
+//     stagnation flag, the loop exit) is bitwise identical in every block.
+//     No atomics: a block that decided differently would wait at the next
+//     barrier forever;
+//   * shared memory for the launch: C's column slab where it fits (float32
+//     up to n_pad 2048, float64 up to 896), the ring's slab of s and y
+//     where it also fits, else the ring stays in the caller's arrays and
+//     is read from L2 (float64 with many slots at a wide rank), and always
+//     the slab arrays (Rt, CRt, CDt, D and G, current and next);
+//   * D goes from L2 straight into registers, eight 64-column steps per
+//     batch, with all loads issued before the first FMA; each thread keeps
+//     a 4 x 8 register tile and each warp sums its tile in 31 shuffles;
+//   * block partials are stored slot-major, so the 32 lanes that sum one
+//     slot read consecutive addresses;
+//   * one warp per low-rank term and product forms the quartic's low-rank
+//     coefficients;
+//   * plain FP32 (FP64) FMAs, no tensor cores, so no dot is ever TF32 (the
+//     JAX package found lower-precision Gram and low-rank dots trip the
+//     stagnation test early).
 //
 // Data written by one block and read by another inside the launch (the
-// partials, the gradient buffers, q) is read with __ldcg, which bypasses
-// the non-coherent L1.
+// partials, D) is written with __stcg and read with __ldcg, which bypass
+// the non-coherent L1. The caller's s and y rings are updated in place.
 //
-// The caller's s and y rings are updated in place.
+// Timing build (-DK1_TIMING, chip_smoke.py phase 5): thread 0 of block 0
+// adds the %globaltimer time between consecutive stamps to its phase's sum
+// and counts the grid barriers; at exit it writes the sums (ns), the
+// barrier count and the entry barriers to tbuf (int64). k1_phases() names
+// the phases. Without the macro the stamps compile to nothing.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-#include <cfloat>
-#include <cmath>
-
-namespace cg = cooperative_groups;
+#include "megakernel_common.cuh"
 
 namespace {
 
-constexpr int NT = 256;          // threads per block
-constexpr int NW = NT / 32;      // warps per block
-constexpr int IC = 64;           // n-axis chunk of the D.C product
-constexpr int OPT = 4;           // D.C outputs per thread at most
-constexpr int MAX_RP = 64;
-constexpr int MAX_S = 16;        // columns per block
-constexpr int MAX_K = 16;
-constexpr int MAX_LR = 4;        // low-rank terms (MAX_LR_TERMS)
-constexpr int MAX_LRC = 8;       // low-rank columns over all terms
-constexpr int N_LS = 11;         // line-search scalar partials
+constexpr int N_LS = 2 + 9;      // line-search slots: 2 p1, p2, the Gram of 4
 
 }  // namespace
 
@@ -88,9 +103,10 @@ struct K1Args {
   void *s_ring, *y_ring;
   const void *lrB, *lrBdt, *lrd;
   void *Rt_out, *G_out, *vio_out, *oscal, *work;
+  void *tbuf;     // timing builds: per-phase ns, barriers (int64)
   void *stream;
   // filled in by k1_plan
-  int S, nblk, smem_bytes, sms, blocks_per_sm;
+  int S, nblk, smem_bytes, sms, blocks_per_sm, c_resident, ring_resident;
   long long work_elems;
 };
 
@@ -107,7 +123,7 @@ struct Eps<double> { static __device__ double v() { return DBL_EPSILON; } };
 
 template <typename T>
 struct Params {
-  int n, rp, k, use_hist, n_lr, n_lc, lrc, S, nblk, npart;
+  int n, rp, k, use_hist, n_lr, n_lc, lrc, S, nblk, npart, c_res, cp, ring_res;
   int lr_off[MAX_LR + 1];
   int lr_cons[MAX_LR];
   T gscale, alpha_max;
@@ -115,47 +131,37 @@ struct Params {
   T *s_ring, *y_ring;
   const T *lrB, *lrBdt, *lrd;
   T *Rt_out, *G_out, *vio_out, *oscal;
-  T *gbuf;   // 2 x (rp, n): current and next gradient
-  T *qbuf;   // (rp, n): two-loop vector q, published for the D.C product
-  T *part;   // 2 x nblk x npart: double-buffered block partials
+  T *dbuf;   // (rp, n): the direction, published for the D.C product
+  T *part;   // 2 x npart x nblk: double-buffered block partials, slot-major
+  long long *tbuf;
 };
 
-int npart_for(int rp, int lrc) { return N_LS + rp * lrc; }
-
-// ---- block- and grid-level reductions (fixed order) ----------------------
-
-template <typename T>
-__device__ T warp_sum(T v) {
-  // butterfly: every lane ends with the same bits (a + b == b + a)
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// partial slots of the widest phase: the line search, the entry's Grams,
+// or the gradient with a push
+int npart_for(int rp, int k, int lrc) {
+  const int a = N_LS + rp * lrc, b = gram_npart(k);
+  return a > b ? a : b;
 }
 
-template <typename T>
-__device__ T block_sum(T v, T* red) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  T s = 0;
-  for (int i = 0; i < NW; ++i) s += red[i];
-  return s;
+// shared memory of one block, in elements (ops/megakernel.py
+// k1_smem_bytes mirrors it)
+size_t smem_elems(int n, int rp, int k, int lrc, int S, int c_res,
+                  int ring_res) {
+  return (size_t)(c_res ? c_rows(S) * n : 0) +
+         (size_t)(6 + (ring_res ? 2 * k : 0)) * rp * MAX_S + 6 * MAX_S +
+         8 * 32 + npart_for(rp, k, lrc) + rp * lrc + 2 * MAX_S * MAX_LRC + k +
+         2 * k * k + 2 * k + 1 + 2 * MAX_LR;
 }
 
-// tot[p] = sum over blocks of part[b][p], p < np; the same order in every
-// block. Ends with __syncthreads.
-template <typename T>
-__device__ void grid_totals(const T* part, int nblk, int npart, int np, T* tot) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  for (int p = wid; p < np; p += NW) {
-    T s = 0;
-    for (int b = lane; b < nblk; b += 32) s += __ldcg(part + (size_t)b * npart + p);
-    s = warp_sum(s);
-    if (lane == 0) tot[p] = s;
-  }
-  __syncthreads();
-}
+// the timing build's phases, in tbuf order
+constexpr int K1_NPH = 11;
+const char* const K1_PHASE_NAMES =
+    "direction,d_barrier,dc,linesearch,ls_barrier,ls_totals,quartic,"
+    "commit_gradient,push_dots,grad_barrier,grad_totals";
+enum {
+  PH_DIR, PH_D_BAR, PH_DC, PH_LS, PH_LS_BAR, PH_LS_TOT, PH_QUARTIC, PH_GRAD,
+  PH_PUSH, PH_GRAD_BAR, PH_GRAD_TOT
+};
 
 // ---- the quartic line search (ops/megakernel.py _minimize_quartic) -------
 
@@ -231,55 +237,6 @@ __device__ void minimize_quartic(T e, T d1, T c1, T b1, T a1, T amax, T eps,
   *fbest = bf;
 }
 
-// ---- CDt[:, slab] = (sgn . src) @ C[:, slab]  (C symmetric) ---------------
-
-template <typename T>
-__device__ void cd_product(const Params<T>& P, const T* src, T sgn, int c0,
-                           int ns, T* Ds, T* Cs, T* red, T* out) {
-  const int tid = threadIdx.x, n = P.n, rp = P.rp;
-  const int no = rp * ns;                        // outputs (r, j)
-  int tpo = NT / no;                             // threads per output
-  if (tpo < 1) tpo = 1;
-  const int items = no * tpo;
-  T acc[OPT];
-  for (int u = 0; u < OPT; ++u) acc[u] = 0;
-  for (int i0 = 0; i0 < n; i0 += IC) {
-    __syncthreads();
-    for (int x = tid; x < rp * IC; x += NT) {
-      int r = x / IC, ii = x % IC;
-      Ds[r * (IC + 1) + ii] = __ldcg(src + (size_t)r * n + i0 + ii);
-    }
-    for (int x = tid; x < ns * IC; x += NT) {
-      int j = x / IC, ii = x % IC;
-      Cs[j * (IC + 1) + ii] = P.C[(size_t)(c0 + j) * n + i0 + ii];
-    }
-    __syncthreads();
-    for (int u = 0; u < OPT; ++u) {
-      int it = tid + u * NT;
-      if (it >= items) break;
-      int o = it / tpo, sub = it % tpo;
-      int r = o / ns, j = o % ns;
-      const T* dr = Ds + r * (IC + 1);
-      const T* cj = Cs + j * (IC + 1);
-      T s = acc[u];
-      for (int ii = sub; ii < IC; ii += tpo) s += dr[ii] * cj[ii];
-      acc[u] = s;
-    }
-  }
-  __syncthreads();
-  for (int u = 0; u < OPT; ++u) {
-    int it = tid + u * NT;
-    if (it < items) red[it] = acc[u];
-  }
-  __syncthreads();
-  for (int o = tid; o < no; o += NT) {
-    T s = 0;
-    for (int sub = 0; sub < tpo; ++sub) s += red[o * tpo + sub];
-    out[(o / ns) * MAX_S + (o % ns)] = sgn * s;
-  }
-  __syncthreads();
-}
-
 // ---- the kernel -----------------------------------------------------------
 
 template <typename T>
@@ -289,33 +246,50 @@ __global__ void __launch_bounds__(NT, 1) k1_kernel(Params<T> P) {
   T* sm = reinterpret_cast<T*>(smem_raw);
 
   const int tid = threadIdx.x, blk = blockIdx.x;
+  const int lane = tid & 31, wid = tid >> 5;
   const int n = P.n, rp = P.rp, k = P.k, lrc = P.lrc, np = P.npart;
   const int c0 = blk * P.S;
   const int ns = min(P.S, n - c0);               // >= 1 by construction
-  const int ne = rp * ns;                        // owned elements
+  const int nel = rp * MAX_S;                    // slab array entries
+  const int nblk = P.nblk;
+  TIMER_DECL(K1_NPH);
 
-  // shared-memory carve-up; slab arrays are (rp, MAX_S) row-major
-  const int SL = MAX_RP * MAX_S;
-  T* Rt_s = sm;
-  T* CRt_s = Rt_s + SL;
-  T* CDt_s = CRt_s + SL;
-  T* d_s = CDt_s + SL;
-  T* q_s = d_s + SL;
-  T* vio_s = q_s + SL;
-  T* q1_s = vio_s + MAX_S;
-  T* q2_s = q1_s + MAX_S;
-  T* lam_s = q2_s + MAX_S;
+  // shared-memory carve-up (smem_elems); slab arrays are (rp, MAX_S)
+  T* Cs = sm;                                    // cp x n C slab, if resident
+  T* Rt_s = Cs + (P.c_res ? (size_t)P.cp * n : 0);
+  T* CRt_s = Rt_s + nel;
+  T* CDt_s = CRt_s + nel;
+  T* d_s = CDt_s + nel;
+  T* g_s = d_s + nel;                            // 2 x (rp, MAX_S)
+  T* sr_s = g_s + 2 * nel;                       // k x (rp, MAX_S) ring, if resident
+  T* yr_s = sr_s + (P.ring_res ? (size_t)k * nel : 0);
+  T* lam_s = yr_s + (P.ring_res ? (size_t)k * nel : 0);
   T* w_s = lam_s + MAX_S;
   T* b_s = w_s + MAX_S;
-  T* Ds = b_s + MAX_S;                           // rp x (IC+1)
-  T* Cs = Ds + MAX_RP * (IC + 1);                // S x (IC+1)
-  T* red = Cs + MAX_S * (IC + 1);                // OPT*NT
-  T* tot = red + OPT * NT;                       // npart
-  T* Q = tot + N_LS + MAX_RP * MAX_LRC;          // rp x lrc (identical in all blocks)
-  T* Qd = Q + MAX_RP * MAX_LRC;
-  T* Bs = Qd + MAX_RP * MAX_LRC;                 // S x lrc slab of B
+  T* vio_s = b_s + MAX_S;
+  T* q1_s = vio_s + MAX_S;                       // 2 w sum_r R.D per column
+  T* q2_s = q1_s + MAX_S;                        // w sum_r D.D per column
+  T* red = q2_s + MAX_S;                         // 8 x 32 product tiles
+  T* tot = red + 8 * 32;                         // npart
+  T* Q = tot + np;                               // rp x lrc (identical in all blocks)
+  T* Bs = Q + rp * lrc;                          // S x lrc slab of B
   T* Bdts = Bs + MAX_S * MAX_LRC;                // lrc x S slab of Bdt
   T* rho = Bdts + MAX_LRC * MAX_S;               // k
+  T* STY = rho + k;                              // k x k, slot order
+  T* YTY = STY + k * k;
+  T* wv = YTY + k * k;                           // 2k compact coefficients
+  T* hist_s = wv + 2 * k;                        // 1: the compact direction
+  T* plr = hist_s + 1;                           // 2 x MAX_LR low-rank products
+
+  // the ring's slot i as a slab: shared memory, or the caller's array
+  auto sr = [&](int i) -> Slab<T> {
+    return P.ring_res ? Slab<T>{sr_s + (size_t)i * nel, MAX_S}
+                      : Slab<T>{P.s_ring + (size_t)i * rp * n + c0, n};
+  };
+  auto yr = [&](int i) -> Slab<T> {
+    return P.ring_res ? Slab<T>{yr_s + (size_t)i * nel, MAX_S}
+                      : Slab<T>{P.y_ring + (size_t)i * rp * n + c0, n};
+  };
 
   const T eps = Eps<T>::v();
   const T sigma = P.scal[0];
@@ -327,10 +301,29 @@ __global__ void __launch_bounds__(NT, 1) k1_kernel(Params<T> P) {
   const T* b_lc = lam_lc + P.n_lc;
   const T half = T(0.5), two = T(2);
 
-  // ---- entry: slab state, C.R, Q = R.B ----------------------------------
-  for (int e = tid; e < ne; e += NT) {
-    int r = e / ns, j = e % ns;
-    Rt_s[r * MAX_S + j] = P.Rt_in[(size_t)r * n + c0 + j];
+  // ---- entry: slab state, ring, C slab, C.R, Q = R.B ---------------------
+  for (int e = tid; e < 6 * nel + 6 * MAX_S + (P.ring_res ? 2 * k * nel : 0);
+       e += NT)
+    Rt_s[e] = 0;                                 // padded columns stay 0
+  if (P.c_res) {
+    const int cp = P.cp;
+    for (size_t x = tid; x < (size_t)cp * n; x += NT) {
+      const int j = (int)(x / n);
+      Cs[x] = j < ns ? P.C[(size_t)c0 * n + x] : T(0);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < nel; e += NT) {
+    const int r = e >> 4, j = e & (MAX_S - 1);
+    if (j < ns) {
+      const size_t g = (size_t)r * n + c0 + j;
+      Rt_s[e] = P.Rt_in[g];
+      if (P.ring_res)
+        for (int i = 0; i < k; ++i) {
+          sr_s[i * nel + e] = P.s_ring[(size_t)i * rp * n + g];
+          yr_s[i * nel + e] = P.y_ring[(size_t)i * rp * n + g];
+        }
+    }
   }
   for (int j = tid; j < ns; j += NT) {
     lam_s[j] = P.lam[c0 + j];
@@ -343,21 +336,24 @@ __global__ void __launch_bounds__(NT, 1) k1_kernel(Params<T> P) {
     Bdts[c * MAX_S + j] = P.lrBdt[(size_t)c * n + c0 + j];
   }
   for (int i = tid; i < k; i += NT) rho[i] = P.scal[5 + i];
-  cd_product(P, P.Rt_in, T(1), c0, ns, Ds, Cs, red, CRt_s);
+  __syncthreads();
+  cd_product(n, rp, P.C, P.c_res, P.Rt_in, T(1), c0, ns, Cs, red, CRt_s);
 
-  int ph = 0;  // grid barriers passed: selects the partial buffer
-  auto pbuf = [&](int phase) { return P.part + (size_t)(phase & 1) * P.nblk * np; };
+  int ph = 0;  // partial phases passed: selects the partial buffer
+  auto slot = [&](int p) -> T* {
+    return P.part + ((size_t)(ph & 1) * np + p) * nblk + blk;
+  };
+  // the totals of the partial phase just passed (npu slots) into tot
+  auto totals = [&](int npu) {
+    grid_totals(P.part + (size_t)(ph & 1) * np * nblk, nblk, npu, tot);
+    ++ph;
+  };
 
   // per-column violation and the (lam, vio) dots
-  T* mypart = pbuf(ph) + (size_t)blk * np;
   {
-    T o = 0;
-    for (int e = tid; e < ne; e += NT) {
-      int r = e / ns, j = e % ns;
-      o += Rt_s[r * MAX_S + j] * CRt_s[r * MAX_S + j];
-    }
-    o = block_sum(o, red);
-    if (tid == 0) {
+    T o = warp_slab_dot<T>(Rt_s, CRt_s, nel, ns);
+    if (wid == 0 && lane == 0) __stcg(slot(0), o);
+    if (tid == 32) {
       T lv = 0, vv = 0;
       for (int j = 0; j < ns; ++j) {
         T s = 0;
@@ -367,20 +363,18 @@ __global__ void __launch_bounds__(NT, 1) k1_kernel(Params<T> P) {
         lv += lam_s[j] * v;
         vv += v * v;
       }
-      mypart[0] = o;
-      mypart[1] = lv;
-      mypart[2] = vv;
+      __stcg(slot(1), lv);
+      __stcg(slot(2), vv);
     }
     for (int x = tid; x < rp * lrc; x += NT) {
       int r = x / lrc, c = x % lrc;
       T s = 0;
       for (int j = 0; j < ns; ++j) s += Rt_s[r * MAX_S + j] * Bs[j * MAX_LRC + c];
-      mypart[N_LS + x] = s;
+      __stcg(slot(N_LS + x), s);
     }
   }
-  grid.sync();
-  grid_totals(pbuf(ph), P.nblk, np, N_LS + rp * lrc, tot);
-  ++ph;
+  GRID_SYNC();
+  totals(N_LS + rp * lrc);
   for (int x = tid; x < rp * lrc; x += NT) Q[x] = tot[N_LS + x];
   __syncthreads();
 
@@ -405,13 +399,15 @@ __global__ void __launch_bounds__(NT, 1) k1_kernel(Params<T> P) {
   for (int i = 0; i < P.n_lc; ++i)
     L_val = L_val - lam_lc[i] * vio_lr[i] + half * sigma * vio_lr[i] * vio_lr[i];
 
-  // gradient of the slab into gbuf[cur]: 2 (CRt + (w.y) Rt) + low-rank
+  // gradient of the slab into Gdst (a slab array): 2 (CRt + (w.y) Rt) +
+  // low-rank, y = -(lam - sigma v)
   int cur = 0;
   auto gradient = [&](T* Gdst) {
-    for (int e = tid; e < ne; e += NT) {
-      int r = e / ns, j = e % ns;
+    for (int e = tid; e < nel; e += NT) {
+      const int r = e >> 4, j = e & (MAX_S - 1);
+      if (j >= ns) continue;
       T y_row = -(lam_s[j] - sigma * vio_s[j]);
-      T g = two * (CRt_s[r * MAX_S + j] + (w_s[j] * y_row) * Rt_s[r * MAX_S + j]);
+      T g = two * (CRt_s[e] + (w_s[j] * y_row) * Rt_s[e]);
       for (int t = 0; t < P.n_lr; ++t) {
         int i = P.lr_cons[t];
         T y_t = i < 0 ? T(1) : -(lam_lc[i] - sigma * vio_lr[i]);
@@ -420,161 +416,143 @@ __global__ void __launch_bounds__(NT, 1) k1_kernel(Params<T> P) {
           s += Q[r * lrc + c] * Bdts[c * MAX_S + j];
         g = g + two * y_t * s;
       }
-      __stcg(Gdst + (size_t)r * n + c0 + j, g);
+      Gdst[e] = g;
     }
+    __syncthreads();
   };
-  gradient(P.gbuf);
-  {
-    T gg = 0;
-    for (int e = tid; e < ne; e += NT) {
-      int r = e / ns, j = e % ns;
-      T g = __ldcg(P.gbuf + (size_t)r * n + c0 + j);
-      gg += g * g;
-    }
-    gg = block_sum(gg, red);
-    if (tid == 0) pbuf(ph)[(size_t)blk * np] = gg;
+  gradient(g_s);
+
+  // ||G||^2, S'g, Y'g and the Grams from the ring: one value per warp turn
+  for (int v = wid; v < 1 + 2 * k + 2 * k * k; v += NW) {
+    const DotPair<Slab<T>> ab =
+        entry_operands(v, k, Slab<T>{g_s, MAX_S}, sr, yr);
+    const T s = warp_slab_dot<T>(ab.a, ab.b, nel, ns);
+    if (lane == 0) __stcg(slot(v), s);
   }
-  grid.sync();
-  grid_totals(pbuf(ph), P.nblk, np, 1, tot);
-  ++ph;
-  T gnorm = sqrt(tot[0]) / P.gscale;
+  GRID_SYNC();
+  totals(1 + 2 * k + 2 * k * k);
+  T gsq = tot[0];
+  T gnorm = sqrt(gsq) / P.gscale;
+  T* pvec = tot + 1;   // [S'g; Y'g], valid until the next grid_totals
+  for (int x = tid; x < k * k; x += NT) {
+    STY[x] = tot[1 + 2 * k + x];
+    YTY[x] = tot[1 + 2 * k + k * k + x];
+  }
+  __syncthreads();
 
   int steps = 0;
   bool stag = false;
   T alpha_last = 0;
+  TIMER_ENTRY();
 
   // ---- the inner loop -----------------------------------------------------
   while (gnorm > cur_gtol && steps < max_steps && !stag) {
-    T* Gc = P.gbuf + (size_t)cur * rp * n;
-    T* Gn = P.gbuf + (size_t)(cur ^ 1) * rp * n;
-    const T* src = Gc;  // the direction is -src
+    T* Gc = g_s + (size_t)cur * nel;
+    T* Gn = g_s + (size_t)(cur ^ 1) * nel;
 
-    if (P.use_hist) {
-      // two-loop recursion over the ring (own slab; one barrier per dot)
-      for (int e = tid; e < ne; e += NT) {
-        int r = e / ns, j = e % ns;
-        q_s[r * MAX_S + j] = __ldcg(Gc + (size_t)r * n + c0 + j);
+    // ---- direction (every block the same scalars) -------------------------
+    if (tid == 0) {
+      bool hist = false;
+      if (P.use_hist) {
+        compact_w_any(k, head, rho, STY, YTY, pvec, wv);
+        T s = gsq;
+        for (int i = 0; i < 2 * k; ++i) s = s + wv[i] * pvec[i];
+        const T descent = -s;
+        hist = !((descent != descent) || descent >= T(0));
       }
-      T a_vals[MAX_K];
-      for (int pass = 0; pass < 2; ++pass) {
-        for (int i = 0; i < k; ++i) {
-          // backward: jj = head - i; forward: the same slots in reverse
-          int ii = pass == 0 ? i : k - 1 - i;
-          int jj = ((head - ii) % k + k) % k;
-          const T* sj = P.s_ring + (size_t)jj * rp * n;
-          const T* yj = P.y_ring + (size_t)jj * rp * n;
-          const T* dj = pass == 0 ? sj : yj;
-          __syncthreads();
-          T s = 0;
-          for (int e = tid; e < ne; e += NT) {
-            int r = e / ns, j = e % ns;
-            s += dj[(size_t)r * n + c0 + j] * q_s[r * MAX_S + j];
-          }
-          s = block_sum(s, red);
-          if (tid == 0) pbuf(ph)[(size_t)blk * np] = s;
-          grid.sync();
-          grid_totals(pbuf(ph), P.nblk, np, 1, tot);
-          ++ph;
-          T dot = tot[0];
-          if (pass == 0) {
-            T a = rho[jj] * dot;
-            a_vals[ii] = a;
-            for (int e = tid; e < ne; e += NT) {
-              int r = e / ns, j = e % ns;
-              q_s[r * MAX_S + j] = q_s[r * MAX_S + j] - a * yj[(size_t)r * n + c0 + j];
-            }
-          } else {
-            T bq = rho[jj] * dot;
-            T coef = a_vals[ii] - bq;
-            for (int e = tid; e < ne; e += NT) {
-              int r = e / ns, j = e % ns;
-              q_s[r * MAX_S + j] = q_s[r * MAX_S + j] + coef * sj[(size_t)r * n + c0 + j];
-            }
-          }
-        }
-      }
-      // publish q; the descent test <-q, G>
-      __syncthreads();
-      T s = 0;
-      for (int e = tid; e < ne; e += NT) {
-        int r = e / ns, j = e % ns;
-        T qv = q_s[r * MAX_S + j];
-        __stcg(P.qbuf + (size_t)r * n + c0 + j, qv);
-        s += (-qv) * __ldcg(Gc + (size_t)r * n + c0 + j);
-      }
-      s = block_sum(s, red);
-      if (tid == 0) pbuf(ph)[(size_t)blk * np] = s;
-      grid.sync();
-      grid_totals(pbuf(ph), P.nblk, np, 1, tot);
-      ++ph;
-      T descent = tot[0];
-      bool bad = (descent != descent) || descent >= T(0);
-      src = bad ? Gc : P.qbuf;
+      hist_s[0] = hist ? T(1) : T(0);
     }
+    __syncthreads();
+    const bool hist = hist_s[0] != T(0);
+    for (int e = tid; e < nel; e += NT) {
+      const int r = e >> 4, j = e & (MAX_S - 1);
+      if (j >= ns) continue;
+      T h = Gc[e];
+      if (hist) {
+        T acc = 0;
+        for (int i = 0; i < k; ++i) acc = acc + wv[i] * sr(i)[e];
+        for (int i = 0; i < k; ++i) acc = acc + wv[k + i] * yr(i)[e];
+        h = h + acc;
+      }
+      d_s[e] = -h;
+      __stcg(P.dbuf + (size_t)r * n + c0 + j, -h);
+    }
+    STAMP(PH_DIR);
+    GRID_SYNC();
+    STAMP(PH_D_BAR);
 
     // ---- line-search products ---------------------------------------------
-    for (int e = tid; e < ne; e += NT) {
-      int r = e / ns, j = e % ns;
-      d_s[r * MAX_S + j] = -__ldcg(src + (size_t)r * n + c0 + j);
-    }
-    cd_product(P, src, T(-1), c0, ns, Ds, Cs, red, CDt_s);
-    mypart = pbuf(ph) + (size_t)blk * np;
+    cd_product(n, rp, P.C, P.c_res, (const T*)P.dbuf, T(1), c0, ns, Cs, red,
+               CDt_s);
+    STAMP(PH_DC);
     {
-      T p1 = 0, p2 = 0;
-      for (int e = tid; e < ne; e += NT) {
-        int r = e / ns, j = e % ns;
-        int x = r * MAX_S + j;
-        p1 += Rt_s[x] * CDt_s[x];
-        p2 += d_s[x] * CDt_s[x];
+      if (wid == 0) {
+        const T p1 = warp_slab_dot<T>(Rt_s, CDt_s, nel, ns);
+        if (lane == 0) __stcg(slot(0), two * p1);
+      } else if (wid == 1) {
+        const T p2 = warp_slab_dot<T>(d_s, CDt_s, nel, ns);
+        if (lane == 0) __stcg(slot(1), p2);
       }
-      p1 = block_sum(p1, red);
-      p2 = block_sum(p2, red);
-      if (tid == 0) {
+      for (int j = tid; j < ns; j += NT) {
+        T rd = 0, dd = 0;
+        for (int r = 0; r < rp; ++r) {
+          rd += Rt_s[r * MAX_S + j] * d_s[r * MAX_S + j];
+          dd += d_s[r * MAX_S + j] * d_s[r * MAX_S + j];
+        }
+        q1_s[j] = two * w_s[j] * rd;
+        q2_s[j] = w_s[j] * dd;
+      }
+      __syncthreads();
+      if (tid == 64) {
         T g[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
         for (int j = 0; j < ns; ++j) {
-          T rd = 0, dd = 0;
-          for (int r = 0; r < rp; ++r) {
-            rd += Rt_s[r * MAX_S + j] * d_s[r * MAX_S + j];
-            dd += d_s[r * MAX_S + j] * d_s[r * MAX_S + j];
-          }
-          T q1 = two * w_s[j] * rd, q2 = w_s[j] * dd;
-          q1_s[j] = q1;
-          q2_s[j] = q2;
-          T l = lam_s[j], v = vio_s[j];
+          const T l = lam_s[j], v = vio_s[j], q1 = q1_s[j], q2 = q2_s[j];
           g[0] += l * v;   g[1] += v * v;
           g[2] += l * q1;  g[3] += v * q1;
           g[4] += l * q2;  g[5] += v * q2;
           g[6] += q1 * q1; g[7] += q1 * q2; g[8] += q2 * q2;
         }
-        mypart[0] = two * p1;
-        mypart[1] = p2;
-        for (int i = 0; i < 9; ++i) mypart[2 + i] = g[i];
+        for (int i = 0; i < 9; ++i) __stcg(slot(2 + i), g[i]);
       }
       for (int x = tid; x < rp * lrc; x += NT) {
         int r = x / lrc, c = x % lrc;
         T s = 0;
         for (int j = 0; j < ns; ++j) s += d_s[r * MAX_S + j] * Bs[j * MAX_LRC + c];
-        mypart[N_LS + x] = s;
+        __stcg(slot(N_LS + x), s);
       }
     }
-    grid.sync();
-    grid_totals(pbuf(ph), P.nblk, np, N_LS + rp * lrc, tot);
-    ++ph;
-    for (int x = tid; x < rp * lrc; x += NT) Qd[x] = tot[N_LS + x];
+    STAMP(PH_LS);
+    GRID_SYNC();
+    STAMP(PH_LS_BAR);
+    totals(N_LS + rp * lrc);
+    const T* Qd = tot + N_LS;   // valid until the gradient's totals
+
+    // the low-rank products, one warp per term and product
+    if (wid < 2 * MAX_LR && (wid % MAX_LR) < P.n_lr) {
+      const int t = wid % MAX_LR, c_lo = P.lr_off[t];
+      const int nc = P.lr_off[t + 1] - c_lo;
+      const T* Qa = wid < MAX_LR ? Q : Qd;
+      T s_ = 0;
+      for (int x = lane; x < rp * nc; x += 32) {
+        const int r = x / nc, c = c_lo + x % nc;
+        s_ += Qa[r * lrc + c] * Qd[r * lrc + c] * P.lrd[c];
+      }
+      s_ = warp_sum(s_);
+      if (lane == 0) plr[wid] = wid < MAX_LR ? two * s_ : s_;
+    }
     __syncthreads();
+    STAMP(PH_LS_TOT);
 
     // ---- quartic coefficients and the line search (every thread) --------
     T p1 = tot[0], p2 = tot[1];
     const T* Gm = tot + 2;  // lv, vv, lq1, vq1, lq2, vq2, q1q1, q1q2, q2q2
-    T p1_lr[MAX_LR], p2_lr[MAX_LR];
-    for (int t = 0; t < P.n_lr; ++t) {
-      p1_lr[t] = two * lr_tr(Q, Qd, t);
-      p2_lr[t] = lr_tr(Qd, Qd, t);
+    const T* p1_lr = plr;
+    const T* p2_lr = plr + MAX_LR;
+    for (int t = 0; t < P.n_lr; ++t)
       if (P.lr_cons[t] < 0) {
         p1 = p1 + p1_lr[t];
         p2 = p2 + p2_lr[t];
       }
-    }
     T ce = obj - Gm[0] + half * sigma * Gm[1];
     T cd = p1 - Gm[2] + sigma * Gm[3];
     T cc = p2 - Gm[4] + sigma * Gm[5] + half * sigma * Gm[6];
@@ -592,6 +570,12 @@ __global__ void __launch_bounds__(NT, 1) k1_kernel(Params<T> P) {
     }
     T alpha, L_new;
     minimize_quartic(ce, cd, cc, cb, ca, P.alpha_max, eps, &alpha, &L_new);
+    const T rel_delta = (L_val - L_new) /
+                        fmax(T(1), fmax(fabs(L_new), fabs(L_val)));
+    const bool stag_new = rel_delta < stag_tol;
+    const bool push = P.use_hist && !stag_new;
+    const int jn = (head + 1) % k;               // the pushed slot
+    STAMP(PH_QUARTIC);
 
     // ---- algebraic commit ---------------------------------------------------
     for (int j = tid; j < ns; j += NT)
@@ -601,58 +585,49 @@ __global__ void __launch_bounds__(NT, 1) k1_kernel(Params<T> P) {
       if (i >= 0) vio_lr[i] = vio_lr[i] + alpha * (alpha * p2_lr[t] + p1_lr[t]);
     }
     obj = obj + alpha * (alpha * p2 + p1);
-    for (int e = tid; e < ne; e += NT) {
-      int r = e / ns, j = e % ns;
-      int x = r * MAX_S + j;
-      Rt_s[x] = Rt_s[x] + alpha * d_s[x];
-      CRt_s[x] = CRt_s[x] + alpha * CDt_s[x];
+    for (int e = tid; e < nel; e += NT) {
+      if ((e & (MAX_S - 1)) >= ns) continue;
+      Rt_s[e] = Rt_s[e] + alpha * d_s[e];
+      CRt_s[e] = CRt_s[e] + alpha * CDt_s[e];
     }
-    __syncthreads();  // every thread has read Q and Qd for the coefficients
+    __syncthreads();  // every thread has read Q and Qd for the step
     for (int x = tid; x < rp * lrc; x += NT) Q[x] = Q[x] + alpha * Qd[x];
     __syncthreads();
 
-    // ---- gradient, ||G||^2 and y's ------------------------------------------
+    // ---- gradient, the ring push and the next direction's dots --------------
     gradient(Gn);
-    mypart = pbuf(ph) + (size_t)blk * np;
-    {
-      T gg = 0, ys = 0;
-      for (int e = tid; e < ne; e += NT) {
-        int r = e / ns, j = e % ns;
-        size_t g = (size_t)r * n + c0 + j;
-        T gn = __ldcg(Gn + g);
-        gg += gn * gn;
-        ys += (gn - __ldcg(Gc + g)) * (alpha * d_s[r * MAX_S + j]);
-      }
-      gg = block_sum(gg, red);
-      ys = block_sum(ys, red);
-      if (tid == 0) {
-        mypart[0] = gg;
-        mypart[1] = ys;
-      }
-    }
-    grid.sync();
-    grid_totals(pbuf(ph), P.nblk, np, 2, tot);
-    ++ph;
-    T gnorm_new = sqrt(tot[0]) / P.gscale;
-    T ys = tot[1];
-
-    T rel_delta = (L_val - L_new) /
-                  fmax(T(1), fmax(fabs(L_new), fabs(L_val)));
-    bool stag_new = rel_delta < stag_tol;
-
-    if (P.use_hist && !stag_new) {
-      int head_new = (head + 1) % k;
-      T* sdst = P.s_ring + (size_t)head_new * rp * n;
-      T* ydst = P.y_ring + (size_t)head_new * rp * n;
-      for (int e = tid; e < ne; e += NT) {
-        int r = e / ns, j = e % ns;
-        size_t g = (size_t)r * n + c0 + j;
-        sdst[g] = alpha * d_s[r * MAX_S + j];
-        ydst[g] = __ldcg(Gn + g) - __ldcg(Gc + g);
+    STAMP(PH_GRAD);
+    if (push) {
+      const Slab<T> s_new = sr(jn), y_new = yr(jn);
+      for (int e = tid; e < nel; e += NT) {
+        if ((e & (MAX_S - 1)) >= ns) continue;
+        s_new[e] = alpha * d_s[e];
+        y_new[e] = Gn[e] - Gc[e];
       }
       __syncthreads();
-      if (tid == 0) rho[head_new] = T(1) / ys;
-      head = head_new;
+    }
+    for (int v = wid; v < (push ? 1 + 5 * k : 1 + 2 * k); v += NW) {
+      const DotPair<Slab<T>> ab =
+          grad_operands(v, k, jn, Slab<T>{Gn, MAX_S}, sr, yr);
+      const T s = warp_slab_dot<T>(ab.a, ab.b, nel, ns);
+      if (lane == 0) __stcg(slot(v), s);
+    }
+    STAMP(PH_PUSH);
+    GRID_SYNC();
+    STAMP(PH_GRAD_BAR);
+    totals(push ? 1 + 5 * k : 1 + 2 * k);
+    gsq = tot[0];
+    const T gnorm_new = sqrt(gsq) / P.gscale;
+    if (push) {
+      for (int i = tid; i < k; i += NT) {
+        STY[jn * k + i] = tot[1 + 2 * k + i];
+        STY[i * k + jn] = tot[1 + 3 * k + i];
+        YTY[jn * k + i] = tot[1 + 4 * k + i];
+        YTY[i * k + jn] = tot[1 + 4 * k + i];
+      }
+      __syncthreads();
+      if (tid == 0) rho[jn] = T(1) / STY[jn * k + jn];
+      head = jn;
     }
     __syncthreads();
 
@@ -662,15 +637,22 @@ __global__ void __launch_bounds__(NT, 1) k1_kernel(Params<T> P) {
     alpha_last = alpha;
     cur ^= 1;
     ++steps;
+    STAMP(PH_GRAD_TOT);
   }
 
   // ---- outputs ----------------------------------------------------------------
-  const T* Gf = P.gbuf + (size_t)cur * rp * n;
-  for (int e = tid; e < ne; e += NT) {
-    int r = e / ns, j = e % ns;
-    size_t g = (size_t)r * n + c0 + j;
-    P.Rt_out[g] = Rt_s[r * MAX_S + j];
-    P.G_out[g] = __ldcg(Gf + g);
+  const T* Gf = g_s + (size_t)cur * nel;
+  for (int e = tid; e < nel; e += NT) {
+    const int r = e >> 4, j = e & (MAX_S - 1);
+    if (j >= ns) continue;
+    const size_t g = (size_t)r * n + c0 + j;
+    P.Rt_out[g] = Rt_s[e];
+    P.G_out[g] = Gf[e];
+    if (P.ring_res)
+      for (int i = 0; i < k; ++i) {
+        P.s_ring[(size_t)i * rp * n + g] = sr_s[i * nel + e];
+        P.y_ring[(size_t)i * rp * n + g] = yr_s[i * nel + e];
+      }
   }
   for (int j = tid; j < ns; j += NT) P.vio_out[c0 + j] = vio_s[j];
   if (blk == 0 && tid == 0) {
@@ -683,43 +665,46 @@ __global__ void __launch_bounds__(NT, 1) k1_kernel(Params<T> P) {
     o[5] = alpha_last;
     o[6] = (T)head;
     for (int i = 0; i < k; ++i) o[7 + i] = rho[i];
-    for (int i = 0; i < (P.n_lc > 1 ? P.n_lc : 1); ++i)
-      o[7 + k + i] = i < P.n_lc ? vio_lr[i] : T(0);
+    const int n_vlr = P.n_lc > 1 ? P.n_lc : 1;
+    for (int i = 0; i < n_vlr; ++i) o[7 + k + i] = i < P.n_lc ? vio_lr[i] : T(0);
+    // the Grams after the launch, slot order
+    T* og = o + 7 + k + n_vlr;
+    for (int x = 0; x < k * k; ++x) {
+      og[x] = STY[x];
+      og[k * k + x] = YTY[x];
+    }
   }
-}
-
-size_t smem_elems() {
-  return 5 * MAX_RP * MAX_S + 6 * MAX_S + (MAX_RP + MAX_S) * (IC + 1) +
-         OPT * NT + (N_LS + MAX_RP * MAX_LRC) + 2 * MAX_RP * MAX_LRC +
-         2 * MAX_S * MAX_LRC + MAX_K;
+  TIMER_WRITE(P.tbuf, K1_NPH);
 }
 
 template <typename T>
 int plan(K1Args* a) {
-  cudaError_t err = cudaSetDevice(a->device);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, a->device);
-  if (err != cudaSuccess) return (int)err;
-  int coop = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, a->device);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  int S = (a->n_pad + sms - 1) / sms;
-  int nblk = (a->n_pad + S - 1) / S;
-  int smem = (int)(smem_elems() * sizeof(T));
-  err = cudaFuncSetAttribute(k1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  int S = 0, nblk = 0, sms = 0;
+  int rc = grid_plan(a->device, a->n_pad, &S, &nblk, &sms);
+  if (rc != 0) return rc;
+  // C's slab and the ring's where both fit, else C's, else the ring's
+  const int order[4][2] = {{1, 1}, {1, 0}, {0, 1}, {0, 0}};
+  int c_res = 0, ring_res = 0;
+  size_t smem_sz = 0;
+  for (int i = 0; i < 4; ++i) {
+    smem_sz = smem_elems(a->n_pad, a->rp, a->k, a->lrc, S, order[i][0],
+                         order[i][1]) * sizeof(T);
+    c_res = order[i][0];
+    ring_res = order[i][1];
+    if (smem_sz <= (size_t)SMEM_MAX) break;
+  }
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k1_kernel<T>, NT, smem);
-  if (err != cudaSuccess) return (int)err;
-  int np = npart_for(a->rp, a->lrc);
+  rc = smem_setup(k1_kernel<T>, smem_sz, &per_sm);
+  if (rc != 0) return rc;
+  int np = npart_for(a->rp, a->k, a->lrc);
   a->S = S;
   a->nblk = nblk;
-  a->smem_bytes = smem;
+  a->smem_bytes = (int)smem_sz;
   a->sms = sms;
   a->blocks_per_sm = per_sm;
-  a->work_elems = 3LL * a->rp * a->n_pad + 2LL * nblk * np;
+  a->c_resident = c_res;
+  a->ring_resident = ring_res;
+  a->work_elems = 1LL * a->rp * a->n_pad + 2LL * nblk * np;
   return 0;
 }
 
@@ -737,7 +722,10 @@ int launch(K1Args* a) {
   P.lrc = a->lrc;
   P.S = a->S;
   P.nblk = a->nblk;
-  P.npart = npart_for(a->rp, a->lrc);
+  P.npart = npart_for(a->rp, a->k, a->lrc);
+  P.c_res = a->c_resident;
+  P.cp = c_rows(a->S);
+  P.ring_res = a->ring_resident;
   for (int i = 0; i <= MAX_LR; ++i) P.lr_off[i] = a->lr_off[i];
   for (int i = 0; i < MAX_LR; ++i) P.lr_cons[i] = a->lr_cons[i];
   P.gscale = (T)a->gscale;
@@ -757,10 +745,10 @@ int launch(K1Args* a) {
   P.G_out = (T*)a->G_out;
   P.vio_out = (T*)a->vio_out;
   P.oscal = (T*)a->oscal;
+  P.tbuf = (long long*)a->tbuf;
   T* work = (T*)a->work;
-  P.gbuf = work;
-  P.qbuf = work + 2LL * a->rp * a->n_pad;
-  P.part = work + 3LL * a->rp * a->n_pad;
+  P.dbuf = work;
+  P.part = work + 1LL * a->rp * a->n_pad;
   void* args[] = {&P};
   cudaError_t err = cudaLaunchCooperativeKernel((const void*)k1_kernel<T>, dim3(a->nblk),
                                                 dim3(NT), args, (size_t)a->smem_bytes,
@@ -785,8 +773,9 @@ int k1_limits(int* out) {
   return 0;
 }
 
-// Fills S, nblk, smem_bytes, sms, blocks_per_sm and work_elems of *a for
-// its n_pad, rp, lrc and dtype. Returns a cudaError_t.
+// Fills S, nblk, smem_bytes, sms, blocks_per_sm, c_resident, ring_resident
+// and work_elems of *a for its n_pad, rp, k, lrc and dtype. Returns a
+// cudaError_t.
 int k1_plan(K1Args* a) {
   return a->is_double ? plan<double>(a) : plan<float>(a);
 }
@@ -798,5 +787,8 @@ int k1_launch(K1Args* a) {
 }
 
 const char* k1_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// The timing build's phase names, comma-separated, in tbuf order.
+const char* k1_phases() { return K1_PHASE_NAMES; }
 
 }  // extern "C"

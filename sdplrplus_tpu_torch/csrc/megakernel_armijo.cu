@@ -94,30 +94,19 @@
 // partials, D) is written with __stcg and read with __ldcg, which bypass
 // the non-coherent L1. The caller's s and y rings are updated in place.
 //
+// The reductions, the D.C product, the compact solves, the grid plan and
+// the timing stamps are shared with K1: csrc/megakernel_common.cuh.
+//
 // Timing build (-DK2_TIMING, chip_smoke.py phase 8): thread 0 of block 0
 // adds the %globaltimer time between consecutive stamps to its phase's sum
 // and counts the grid barriers; at exit it writes the sums (ns), the
 // barrier count and the entry barriers to tbuf (int64). k2_phases() names
 // the phases. Without the macro the stamps compile to nothing.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-#include <cfloat>
-#include <cmath>
-
-namespace cg = cooperative_groups;
+#include "megakernel_common.cuh"
 
 namespace {
 
-constexpr int NT = 256;          // threads per block
-constexpr int NW = NT / 32;      // warps per block
-constexpr int IC = 64;           // n-axis granule: the product's i-lanes
-constexpr int MAX_RP = 64;
-constexpr int MAX_S = 16;        // columns per block (the slab stride)
-constexpr int MAX_K = 16;
-constexpr int MAX_LR = 4;        // low-rank terms (MAX_LR_TERMS)
-constexpr int MAX_LRC = 8;       // low-rank columns over all terms
 constexpr int MAX_J = 4;         // diagonal channels per row
 constexpr int MAX_W = 2;         // wide constraints
 constexpr int N_CAND = 51;       // Armijo candidates alpha_max 2^-t
@@ -125,9 +114,6 @@ constexpr int P_QW1 = 2;         // line-search slots: p1, p2, q1_w, q2_w, cands
 constexpr int P_QW2 = P_QW1 + MAX_W;
 constexpr int P_CAND = P_QW2 + MAX_W;
 constexpr int N_LS = P_CAND + N_CAND;
-constexpr int MAX_NBLK = 160;    // grid_totals reads 5 partials per lane
-constexpr int DB = 8;            // the product's 64-column steps per load batch
-constexpr int SMEM_MAX = 232448; // a block's shared memory on sm_90
 
 }  // namespace
 
@@ -176,12 +162,9 @@ struct Params {
 // partial slots of the widest phase: the line search, the entry's Grams,
 // or the gradient with a push
 int npart_for(int rp, int k, int lrc) {
-  int a = N_LS + rp * lrc, b = 1 + 2 * k + 2 * k * k, c = 1 + 5 * k;
-  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+  const int a = N_LS + rp * lrc, b = gram_npart(k);
+  return a > b ? a : b;
 }
-
-// C slab rows: the product's column groups of 8
-int c_rows(int S) { return S <= 8 ? 8 : 16; }
 
 // shared memory of one block, in elements (ops/megakernel.py
 // k2_smem_bytes mirrors it)
@@ -203,257 +186,10 @@ enum {
   PH_GRAD_BAR, PH_GRAD_TOT
 };
 
-#ifdef K2_TIMING
-__device__ __forceinline__ unsigned long long k2_now() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#define K2_STAMP(ph)                    \
-  do {                                  \
-    if (tmr) {                          \
-      unsigned long long t_ = k2_now(); \
-      tacc[ph] += t_ - tprev;           \
-      tprev = t_;                       \
-    }                                   \
-  } while (0)
-#define K2_SYNC()  \
-  do {             \
-    grid.sync();   \
-    ++nbar;        \
-  } while (0)
-#else
-#define K2_STAMP(ph) \
-  do {               \
-  } while (0)
-#define K2_SYNC() grid.sync()
-#endif
-
-// ---- reductions (fixed order) ----------------------------------------------
-
-template <typename T>
-__device__ T warp_sum(T v) {
-  // butterfly: every lane ends with the same bits (a + b == b + a)
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// sum of a[e] * b[e] over the valid entries of two (rp, MAX_S) slab arrays
-// (columns j < ns), by one warp; every lane returns the same value
-template <typename T>
-__device__ T warp_slab_dot(const T* a, const T* b, int nel, int ns) {
-  const int lane = threadIdx.x & 31;
-  T s = 0;
-  for (int e = lane; e < nel; e += 32)
-    if ((e & (MAX_S - 1)) < ns) s += a[e] * b[e];
-  return warp_sum(s);
-}
-
-// tot[p] = sum over blocks of part[p][b], p < np; the same order in every
-// block (lane l adds blocks l, l + 32, ... in turn, then a butterfly).
-// Each warp issues the loads of eight slots before it sums any.
-// Ends with __syncthreads.
-template <typename T>
-__device__ void grid_totals(const T* part, int nblk, int np, T* tot) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  constexpr int U = 8;  // slots per warp turn: 40 loads in flight per lane
-  for (int p0 = wid; p0 < np; p0 += U * NW) {
-    T s[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int p = p0 + u * NW;
-      T a = 0;
-#pragma unroll
-      for (int i = 0; i < MAX_NBLK / 32; ++i) {
-        const int b = lane + 32 * i;
-        if (p < np && b < nblk) a += __ldcg(part + (size_t)p * nblk + b);
-      }
-      s[u] = a;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const T v = warp_sum(s[u]);
-      const int p = p0 + u * NW;
-      if (lane == 0 && p < np) tot[p] = v;
-    }
-  }
-  __syncthreads();
-}
-
 // min(ub, x) that keeps a NaN x, as torch.minimum does (fmin drops it)
 template <typename T>
 __device__ T tmin(T ub, T x) {
   return (x < ub || x != x) ? x : ub;
-}
-
-// The 32 values v[0..31] of every lane summed over the warp's lanes by
-// recursive halving: afterwards v[0] of lane l holds the sum of value l.
-template <typename T>
-__device__ __forceinline__ void halve32(T* v, int lane) {
-#pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) {
-    const bool up = (lane & o) != 0;
-#pragma unroll
-    for (int q = 0; q < o; ++q) {
-      const T send = up ? v[q] : v[q + o];
-      const T keep = up ? v[q + o] : v[q];
-      v[q] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-    }
-  }
-}
-
-// ---- out[r][j] = sgn . sum_i src[r][i] C[c0 + j][i]  (C symmetric) --------
-// src (rp, n) in global memory; out a (rp, MAX_S) slab array, j < ns.
-// Warp w takes rows 4 (w & 3) .. +3 of each 16-row pass and the i-lanes
-// il = lane + 32 (w >> 2), i = il + 64 c; each thread keeps a 4 x 8 tile
-// (8 slab columns per column group) and loads D in batches of DB steps.
-template <typename T>
-__device__ void cd_product(int n, int rp, const T* C, int c_res,
-                           const T* src, T sgn, int c0, int ns, const T* Cs,
-                           T* red, T* out) {
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  const int rg = wid & 3, ih = wid >> 2;
-  const int il = lane + 32 * ih;
-  const int ncg = (ns + 7) >> 3;
-  const int nst = n / IC;
-  for (int r0 = 0; r0 < rp; r0 += 16) {
-    const int rb = r0 + 4 * rg;  // rp % 8 == 0: rows rb..rb+3 all live or not
-    for (int cgi = 0; cgi < ncg; ++cgi) {
-      T acc[32];
-#pragma unroll
-      for (int u = 0; u < 32; ++u) acc[u] = 0;
-      if (rb < rp) {
-        const T* d0 = src + (size_t)rb * n + il;
-        const int jb = cgi * 8;
-        const T* cj = c_res ? Cs + (size_t)jb * n + il
-                            : C + (size_t)(c0 + jb) * n + il;
-        for (int st0 = 0; st0 < nst; st0 += DB) {
-          // the batch's D values first: DB x 4 loads in flight per lane
-          T dv[DB][4];
-#pragma unroll
-          for (int s = 0; s < DB; ++s) {
-            const int i = (st0 + s) * IC;
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-              dv[s][a] = st0 + s < nst ? __ldcg(d0 + (size_t)a * n + i) : T(0);
-          }
-#pragma unroll
-          for (int s = 0; s < DB; ++s) {
-            if (st0 + s >= nst) break;
-            const int i = (st0 + s) * IC;
-            T cv[8];
-#pragma unroll
-            for (int b = 0; b < 8; ++b)
-              cv[b] = c_res ? cj[(size_t)b * n + i]
-                            : (jb + b < ns ? __ldg(cj + (size_t)b * n + i) : T(0));
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-#pragma unroll
-              for (int b = 0; b < 8; ++b) acc[a * 8 + b] += dv[s][a] * cv[b];
-          }
-        }
-      }
-      halve32(acc, lane);
-      __syncthreads();  // the previous pass has read red
-      red[(ih * 4 + rg) * 32 + lane] = acc[0];
-      __syncthreads();
-      if (tid < 128) {
-        const int g = tid >> 5, l = tid & 31;
-        const int r = r0 + 4 * g + (l >> 3), j = cgi * 8 + (l & 7);
-        if (r < rp && j < ns)
-          out[r * MAX_S + j] = sgn * (red[g * 32 + l] + red[(4 + g) * 32 + l]);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// ---- the compact direction's scalars (one thread) --------------------------
-// w (2k) from p = [S'g; Y'g], the Grams and rho; slots in age order
-// a = 0 (oldest) .. k-1 (newest): slot (head + 1 + a) % k. KK > 0: k == KK,
-// every loop unrolled and the k x k system in registers; KK == 0: any
-// k <= MAX_K, in local memory.
-template <typename T, int KK>
-__device__ void compact_w(int k_, int head, const T* rho, const T* STY,
-                          const T* YTY, const T* p, T* w) {
-  constexpr int KM = KK > 0 ? KK : MAX_K;
-  const int k = KK > 0 ? KK : k_;
-  T Rm[KM][KM], u[KM], w1[KM];
-  int pm[KM];
-  bool em[KM];
-#pragma unroll
-  for (int a = 0; a < KM; ++a) {
-    if (a >= k) break;
-    pm[a] = (head + 1 + a) % k;
-    em[a] = rho[pm[a]] == T(0);
-  }
-#pragma unroll
-  for (int a = 0; a < KM; ++a) {
-    if (a >= k) break;
-#pragma unroll
-    for (int b = 0; b < KM; ++b) {
-      if (b >= k) break;
-      const bool live = !(em[a] || em[b]);
-      T v = (b >= a && live) ? STY[pm[a] * k + pm[b]] : T(0);
-      if (a == b && em[a]) v = v + T(1);
-      Rm[a][b] = v;
-    }
-  }
-  // u = R^-1 S'g (back substitution)
-#pragma unroll
-  for (int a = KM - 1; a >= 0; --a) {
-    if (a >= k) continue;
-    T s = p[pm[a]];
-#pragma unroll
-    for (int b = a + 1; b < KM; ++b) {
-      if (b >= k) break;
-      s = s - Rm[a][b] * u[b];
-    }
-    u[a] = s / Rm[a][a];
-  }
-  // v = D u + Y'Y u - Y'g, then w1 = R^-T v (forward substitution)
-#pragma unroll
-  for (int a = 0; a < KM; ++a) {
-    if (a >= k) break;
-    const bool la = !em[a];
-    T v = (la ? STY[pm[a] * k + pm[a]] : T(0)) * u[a];
-#pragma unroll
-    for (int b = 0; b < KM; ++b) {
-      if (b >= k) break;
-      const bool live = la && !em[b];
-      v = v + (live ? YTY[pm[a] * k + pm[b]] : T(0)) * u[b];
-    }
-    v = v - p[k + pm[a]];
-    T s = v;
-#pragma unroll
-    for (int b = 0; b < KM; ++b) {
-      if (b >= a) break;
-      s = s - Rm[b][a] * w1[b];
-    }
-    w1[a] = s / Rm[a][a];
-  }
-#pragma unroll
-  for (int a = 0; a < KM; ++a) {
-    if (a >= k) break;
-    w[pm[a]] = w1[a];
-    w[k + pm[a]] = -u[a];
-  }
-}
-
-template <typename T>
-__device__ void compact_w_any(int k, int head, const T* rho, const T* STY,
-                              const T* YTY, const T* p, T* w) {
-  switch (k) {
-    case 1: compact_w<T, 1>(k, head, rho, STY, YTY, p, w); break;
-    case 2: compact_w<T, 2>(k, head, rho, STY, YTY, p, w); break;
-    case 3: compact_w<T, 3>(k, head, rho, STY, YTY, p, w); break;
-    case 4: compact_w<T, 4>(k, head, rho, STY, YTY, p, w); break;
-    case 5: compact_w<T, 5>(k, head, rho, STY, YTY, p, w); break;
-    case 6: compact_w<T, 6>(k, head, rho, STY, YTY, p, w); break;
-    case 7: compact_w<T, 7>(k, head, rho, STY, YTY, p, w); break;
-    case 8: compact_w<T, 8>(k, head, rho, STY, YTY, p, w); break;
-    default: compact_w<T, 0>(k, head, rho, STY, YTY, p, w);
-  }
 }
 
 // ---- the kernel -----------------------------------------------------------
@@ -472,11 +208,7 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
   const int nel = rp * MAX_S;                    // slab array entries
   const int nch = J * ns;                        // owned channel entries
   const int nblk = P.nblk;
-#ifdef K2_TIMING
-  const bool tmr = blk == 0 && tid == 0;
-  unsigned long long tacc[K2_NPH] = {}, tprev = 0;
-  long long nbar = 0, nbar_entry = 0;
-#endif
+  TIMER_DECL(K2_NPH);
 
   // shared-memory carve-up (smem_elems); slab arrays are (rows, MAX_S)
   T* Cs = sm;                                    // cp x n C slab, if resident
@@ -588,7 +320,7 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
 
   // per-column channel violations, the channel sharp-AL sum, wide dots
   {
-    T o = warp_slab_dot(Rt_s, CRt_s, nel, ns);
+    T o = warp_slab_dot<T>(Rt_s, CRt_s, nel, ns);
     if (wid == 0 && lane == 0) __stcg(slot(0), o);
     if (tid == 32) {
       T sh = 0;
@@ -615,7 +347,7 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
       __stcg(slot(N_LS + x), s);
     }
   }
-  K2_SYNC();
+  GRID_SYNC();
   totals(N_LS + rp * lrc);
   for (int x = tid; x < rp * lrc; x += NT) Q[x] = tot[N_LS + x];
   __syncthreads();
@@ -690,26 +422,14 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
   gradient(g_s);
 
   // ||G||^2, S'g, Y'g and the Grams from the ring: one value per warp turn
-  {
-    const int nv = 1 + 2 * k + 2 * k * k;
-    for (int v = wid; v < nv; v += NW) {
-      const T *a, *b;
-      if (v == 0) {
-        a = g_s; b = g_s;
-      } else if (v <= 2 * k) {
-        const int i = (v - 1) % k;
-        a = (v <= k ? sr_s : yr_s) + (size_t)i * nel; b = g_s;
-      } else {
-        const int x = v - 1 - 2 * k;             // STY then YTY, row-major
-        const int q = x % (k * k), i = q / k, j = q % k;
-        a = (x < k * k ? sr_s : yr_s) + (size_t)i * nel;
-        b = yr_s + (size_t)j * nel;
-      }
-      const T s = warp_slab_dot(a, b, nel, ns);
-      if (lane == 0) __stcg(slot(v), s);
-    }
+  auto sr = [&](int i) -> const T* { return sr_s + (size_t)i * nel; };
+  auto yr = [&](int i) -> const T* { return yr_s + (size_t)i * nel; };
+  for (int v = wid; v < 1 + 2 * k + 2 * k * k; v += NW) {
+    const DotPair<const T*> ab = entry_operands(v, k, (const T*)g_s, sr, yr);
+    const T s = warp_slab_dot<T>(ab.a, ab.b, nel, ns);
+    if (lane == 0) __stcg(slot(v), s);
   }
-  K2_SYNC();
+  GRID_SYNC();
   totals(1 + 2 * k + 2 * k * k);
   T gsq = tot[0];
   T gnorm = sqrt(gsq) / P.gscale;
@@ -723,10 +443,7 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
   int steps = 0;
   bool stag = false;
   T alpha_last = 0;
-#ifdef K2_TIMING
-  nbar_entry = nbar;
-  if (tmr) tprev = k2_now();
-#endif
+  TIMER_ENTRY();
 
   // ---- the inner loop -----------------------------------------------------
   while (gnorm > cur_gtol && steps < max_steps && !stag) {
@@ -764,20 +481,20 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
       d_s[e] = -h;
       __stcg(P.dbuf + (size_t)r * n + c0 + j, -h);
     }
-    K2_STAMP(PH_DIR);
-    K2_SYNC();
-    K2_STAMP(PH_D_BAR);
+    STAMP(PH_DIR);
+    GRID_SYNC();
+    STAMP(PH_D_BAR);
 
     // ---- line-search products and the Armijo candidates -------------------
     cd_product(n, rp, P.C, P.c_res, (const T*)P.dbuf, T(1), c0, ns, Cs, red,
                CDt_s);
-    K2_STAMP(PH_DC);
+    STAMP(PH_DC);
     {
       if (wid == 0) {
-        const T p1 = warp_slab_dot(Rt_s, CDt_s, nel, ns);
+        const T p1 = warp_slab_dot<T>(Rt_s, CDt_s, nel, ns);
         if (lane == 0) __stcg(slot(0), two * p1);
       } else if (wid == 1) {
-        const T p2 = warp_slab_dot(d_s, CDt_s, nel, ns);
+        const T p2 = warp_slab_dot<T>(d_s, CDt_s, nel, ns);
         if (lane == 0) __stcg(slot(1), p2);
       }
       for (int j = tid; j < ns; j += NT) {
@@ -822,12 +539,12 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
         __stcg(slot(N_LS + x), s);
       }
     }
-    K2_STAMP(PH_LS);
-    K2_SYNC();
-    K2_STAMP(PH_LS_BAR);
+    STAMP(PH_LS);
+    GRID_SYNC();
+    STAMP(PH_LS_BAR);
     totals(N_LS + rp * lrc);
     const T* Qd = tot + N_LS;   // valid until the gradient's totals
-    K2_STAMP(PH_LS_TOT);
+    STAMP(PH_LS_TOT);
 
     // the low-rank products, one warp per term and product
     if (wid < 2 * MAX_LR && (wid % MAX_LR) < P.n_lr) {
@@ -886,7 +603,7 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
     const bool stag_new = rel_delta < stag_tol;
     const bool push = P.use_hist && !stag_new;
     const int jn = (head + 1) % k;               // the pushed slot
-    K2_STAMP(PH_ARMIJO);
+    STAMP(PH_ARMIJO);
 
     // ---- algebraic commit ---------------------------------------------------
     for (int x = tid; x < nch; x += NT) {
@@ -922,32 +639,15 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
       }
       __syncthreads();
     }
-    {
-      // 0: g'g; 1..k: S'g; k+1..2k: Y'g; with a push also 2k+1..3k:
-      // s_j'y_i; 3k+1..4k: s_i'y_j; 4k+1..5k: y_i'y_j
-      const int nv = push ? 1 + 5 * k : 1 + 2 * k;
-      for (int v = wid; v < nv; v += NW) {
-        const T *a, *b;
-        if (v == 0) {
-          a = Gn; b = Gn;
-        } else if (v <= 2 * k) {
-          const int i = (v - 1) % k;
-          a = (v <= k ? sr_s : yr_s) + (size_t)i * nel; b = Gn;
-        } else {
-          const int x = v - 1 - 2 * k, i = x % k, which = x / k;
-          const T* sj = sr_s + (size_t)jn * nel;
-          const T* yj = yr_s + (size_t)jn * nel;
-          if (which == 0) { a = sj; b = yr_s + (size_t)i * nel; }
-          else if (which == 1) { a = sr_s + (size_t)i * nel; b = yj; }
-          else { a = yr_s + (size_t)i * nel; b = yj; }
-        }
-        const T s = warp_slab_dot(a, b, nel, ns);
-        if (lane == 0) __stcg(slot(v), s);
-      }
+    for (int v = wid; v < (push ? 1 + 5 * k : 1 + 2 * k); v += NW) {
+      const DotPair<const T*> ab = grad_operands(v, k, jn, (const T*)Gn, sr,
+                                                 yr);
+      const T s = warp_slab_dot<T>(ab.a, ab.b, nel, ns);
+      if (lane == 0) __stcg(slot(v), s);
     }
-    K2_STAMP(PH_GRAD);
-    K2_SYNC();
-    K2_STAMP(PH_GRAD_BAR);
+    STAMP(PH_GRAD);
+    GRID_SYNC();
+    STAMP(PH_GRAD_BAR);
     totals(push ? 1 + 5 * k : 1 + 2 * k);
     gsq = tot[0];
     const T gnorm_new = sqrt(gsq) / P.gscale;
@@ -970,7 +670,7 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
     alpha_last = alpha;
     cur ^= 1;
     ++steps;
-    K2_STAMP(PH_GRAD_TOT);
+    STAMP(PH_GRAD_TOT);
   }
 
   // ---- outputs ----------------------------------------------------------------
@@ -1010,40 +710,22 @@ __global__ void __launch_bounds__(NT, 1) k2_kernel(Params<T> P) {
       og[k * k + x] = YTY[x];
     }
   }
-#ifdef K2_TIMING
-  if (tmr && P.tbuf) {
-    for (int i = 0; i < K2_NPH; ++i) P.tbuf[i] = (long long)tacc[i];
-    P.tbuf[K2_NPH] = nbar;
-    P.tbuf[K2_NPH + 1] = nbar_entry;
-  }
-#endif
+  TIMER_WRITE(P.tbuf, K2_NPH);
 }
 
 template <typename T>
 int plan(K2Args* a) {
-  cudaError_t err = cudaSetDevice(a->device);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, a->device);
-  if (err != cudaSuccess) return (int)err;
-  int coop = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, a->device);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  int S = (a->n_pad + sms - 1) / sms;
-  int nblk = (a->n_pad + S - 1) / S;
-  if (nblk > MAX_NBLK) return (int)cudaErrorInvalidConfiguration;
+  int S = 0, nblk = 0, sms = 0;
+  int rc = grid_plan(a->device, a->n_pad, &S, &nblk, &sms);
+  if (rc != 0) return rc;
   size_t with_c = smem_elems(a->n_pad, a->rp, a->k, a->lrc, S, 1) * sizeof(T);
   size_t without_c = smem_elems(a->n_pad, a->rp, a->k, a->lrc, S, 0) * sizeof(T);
   int resident = with_c <= (size_t)SMEM_MAX;
   size_t smem_sz = resident ? with_c : without_c;
-  if (smem_sz > (size_t)SMEM_MAX) return (int)cudaErrorInvalidConfiguration;
-  int smem = (int)smem_sz;
-  err = cudaFuncSetAttribute(k2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k2_kernel<T>, NT, smem);
-  if (err != cudaSuccess) return (int)err;
+  rc = smem_setup(k2_kernel<T>, smem_sz, &per_sm);
+  if (rc != 0) return rc;
+  int smem = (int)smem_sz;
   int np = npart_for(a->rp, a->k, a->lrc);
   a->S = S;
   a->nblk = nblk;

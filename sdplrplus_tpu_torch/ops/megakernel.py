@@ -14,12 +14,15 @@ those files.
 
 What bounds them: per iteration D·C is 2·rp·n_pad² FP32 FLOPs (25.7
 MFLOP at n_pad = 896 and rp = 16, about 0.38 µs at 67 TFLOP/s), and C is
-read once per launch. Grid barriers set their time instead: K1 pays
-2k + 3 per iteration (its two-loop direction takes one per dot); K2
-takes the compact L-BFGS form, whose dots ride the gradient's barrier,
-and pays 3 whatever k, with C's column slab and the ring's slab in
-shared memory for the launch. K2 also returns the ring's Grams SᵀY and
-YᵀY in ``LBFGSState``.
+read once per launch. Latency sets their time instead: grid barriers,
+the totals after each, and the L2 round trips of D·C. Both kernels take
+the compact L-BFGS direction, whose dots ride the gradient's barrier, so
+each pays 3 grid barriers per iteration whatever k, and both keep C's
+column slab and the ring's slab in shared memory where they fit
+(``k1_smem_plan``, ``k2_smem_plan``). Their shared device code (the
+reductions, the D·C register-tile product, the compact k×k solves, the
+grid plan) is ``csrc/megakernel_common.cuh``. Both return the ring's
+Grams SᵀY and YᵀY in ``LBFGSState``.
 
 Layout and contract are those of the JAX kernels: the factor, gradient
 and ring live transposed and rank-padded, (rp, n_pad) and (k·rp, n_pad),
@@ -45,8 +48,10 @@ m = 1602, 64 at m = 2000). C then takes at most 16.8 MB (f32) or
 33.6 MB (f64) of the 50 MB L2. K2 also needs its shared memory within a
 block's 227 KB (``k2_smem_plan``: the slab arrays and the 2k ring slots
 at rp × 16 each, plus C's slab where it fits), which leaves out float64
-with 16 ring slots above rp 40. The kernels also check at launch that
-their grid is co-resident.
+with 16 ring slots above rp 40. K1 reads the ring's slab from L2 where
+it does not fit (``k1_smem_plan``), so every shape within the layout's
+limits runs on K1. The kernels also check at launch that their grid is
+co-resident.
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ MAX_LR_COLS = 8
 MAX_N_PAD = 2048
 MAX_RP = 64
 MAX_K = 16
-N_CHUNK = 64  # the kernel's n-axis chunk (IC in csrc/megakernel.cu)
+N_CHUNK = 64  # the kernels' n-axis granule (IC in csrc/megakernel_common.cuh)
 MAX_DIAG_CHANNELS = 4   # K2: diagonal constraint channels per row
 MAX_WIDE = 2            # K2: wide diagonal constraints
 ARMIJO_C = 1e-4         # K2's sufficient-decrease constant
@@ -111,12 +116,12 @@ class MegaSpec:
     @property
     def n_scal_out(self):
         """[L, obj, gnorm, steps, stagnated, α, head, ρ (k), low-rank
-        violations, wide violations] and, for K2, SᵀY and YᵀY (k², k²)."""
-        return self.o_gram + (2 * self.k * self.k if self.armijo else 0)
+        violations, wide violations, SᵀY (k²), YᵀY (k²)]."""
+        return self.o_gram + 2 * self.k * self.k
 
     @property
     def o_gram(self):
-        """Offset of K2's SᵀY in the scalar outputs (YᵀY follows)."""
+        """Offset of SᵀY in the scalar outputs (YᵀY follows)."""
         return 7 + self.k + max(len(self.lr_cons), 1) + self.n_wide
 
 
@@ -134,25 +139,51 @@ def _layout_ok(dp: DeviceProblem, r: int, k: int) -> bool:
     )
 
 
-# K2's shared memory (csrc/megakernel_armijo.cu smem_elems, whose layout
-# this mirrors): C's column slab (8 or 16 rows) when it fits, the slab
-# arrays (Rt, CRt, CDt, D, two G and the 2k ring slots, each (rp, 16)),
-# the channel rows and small scalars. Eligibility assumes the H100's 132
-# SMs for the slab width S = ceil(n_pad / 132); the kernel's plan uses the
-# card's count and the wrapper checks that both agree.
-K2_SMEM_MAX = 232448
-K2_SMS = 132
+# The kernels' shared memory (smem_elems in csrc/megakernel.cu and
+# csrc/megakernel_armijo.cu, whose layouts these mirror): C's column slab
+# (8 or 16 rows) where it fits, the slab arrays (Rt, CRt, CDt, D and two
+# G, each (rp, 16)), the 2k ring slots at (rp, 16) each (always for K2,
+# where they fit for K1), the column rows and small scalars. Eligibility
+# assumes the H100's 132 SMs for the slab width S = ceil(n_pad / 132); the
+# kernels' plans use the card's count and the wrapper checks that both
+# agree.
+SMEM_MAX = 232448
+H100_SMS = 132
+_K1_N_LS = 2 + 9
 _K2_N_LS = 2 + 2 * MAX_WIDE + N_CAND
 
 
+def _c_rows(n_pad: int, sms: int) -> int:
+    return 8 if -(-n_pad // sms) <= 8 else 16
+
+
+def _gram_npart(k: int) -> int:
+    """Partial slots of the entry's Grams and of a gradient with a push."""
+    return max(1 + 2 * k + 2 * k * k, 1 + 5 * k)
+
+
+def k1_npart(rp: int, k: int, lrc: int) -> int:
+    return max(_K1_N_LS + rp * lrc, _gram_npart(k))
+
+
 def k2_npart(rp: int, k: int, lrc: int) -> int:
-    return max(_K2_N_LS + rp * lrc, 1 + 2 * k + 2 * k * k, 1 + 5 * k)
+    return max(_K2_N_LS + rp * lrc, _gram_npart(k))
+
+
+def k1_smem_bytes(n_pad: int, rp: int, k: int, lrc: int, itemsize: int,
+                  c_res: bool, ring_res: bool, sms: int = H100_SMS) -> int:
+    elems = ((_c_rows(n_pad, sms) * n_pad if c_res else 0)
+             + (6 + (2 * k if ring_res else 0)) * rp * 16 + 6 * 16
+             + 8 * 32 + k1_npart(rp, k, lrc) + rp * lrc
+             + 2 * 16 * MAX_LR_COLS + k + 2 * k * k + 2 * k + 1
+             + 2 * MAX_LR_TERMS)
+    return elems * itemsize
 
 
 def k2_smem_bytes(n_pad: int, rp: int, k: int, lrc: int, itemsize: int,
-                  S: int, resident: bool) -> int:
-    c_rows = 8 if S <= 8 else 16
-    elems = ((c_rows * n_pad if resident else 0) + (6 + 2 * k) * rp * 16
+                  resident: bool, sms: int = H100_SMS) -> int:
+    elems = ((_c_rows(n_pad, sms) * n_pad if resident else 0)
+             + (6 + 2 * k) * rp * 16
              + 5 * MAX_DIAG_CHANNELS * 16 + (3 + MAX_WIDE) * 16 + N_CAND
              + 8 * 32 + k2_npart(rp, k, lrc) + rp * lrc
              + 2 * 16 * MAX_LR_COLS + k + 2 * k * k + 2 * k + 2
@@ -160,16 +191,30 @@ def k2_smem_bytes(n_pad: int, rp: int, k: int, lrc: int, itemsize: int,
     return elems * itemsize
 
 
+def k1_smem_plan(n_pad: int, rp: int, k: int, lrc: int, itemsize: int,
+                 sms: int = H100_SMS):
+    """(bytes, C resident, ring resident) of K1's shared memory: C's slab
+    and the ring's slab where both fit, else C's alone, else the ring's
+    alone, else neither (the product then reads C from L2, the direction
+    and the Grams the ring). None when even the last exceeds a block's
+    227 KB, which no shape within the layout's limits does."""
+    for c_res, ring_res in ((True, True), (True, False), (False, True),
+                            (False, False)):
+        b = k1_smem_bytes(n_pad, rp, k, lrc, itemsize, c_res, ring_res, sms)
+        if b <= SMEM_MAX:
+            return b, c_res, ring_res
+    return None
+
+
 def k2_smem_plan(n_pad: int, rp: int, k: int, lrc: int, itemsize: int,
-                 sms: int = K2_SMS):
+                 sms: int = H100_SMS):
     """(bytes, C resident) of K2's shared memory, or None when even
     without C's slab it exceeds a block's 227 KB."""
-    S = -(-n_pad // sms)
-    with_c = k2_smem_bytes(n_pad, rp, k, lrc, itemsize, S, True)
-    if with_c <= K2_SMEM_MAX:
+    with_c = k2_smem_bytes(n_pad, rp, k, lrc, itemsize, True, sms)
+    if with_c <= SMEM_MAX:
         return with_c, True
-    without = k2_smem_bytes(n_pad, rp, k, lrc, itemsize, S, False)
-    return (without, False) if without <= K2_SMEM_MAX else None
+    without = k2_smem_bytes(n_pad, rp, k, lrc, itemsize, False, sms)
+    return (without, False) if without <= SMEM_MAX else None
 
 
 def _entry_counts(dp: DeviceProblem, cid: np.ndarray) -> np.ndarray:
@@ -212,6 +257,10 @@ def megakernel_eligible(dp: DeviceProblem, r: int, k: int, use_armijo: bool,
         skip = set(dp.wide_gids) | lr_gids
         return all(counts[g] == 1 for g in range(dp.m) if g not in skip)
     if dp.C_dense is None or dp.diag_width != 1:
+        return False
+    lrc = sum(int(t.B.shape[1]) for t in dp.lowrank)
+    if k1_smem_plan(dp.n_pad, _round_up(max(r, 1), 8), max(k, 1), lrc,
+                    torch.finfo(dtype).bits // 8) is None:
         return False
     # row<->constraint bijection: every non-lowrank constraint id appears
     # exactly once on the diagonal
@@ -471,50 +520,63 @@ def _lr_slices(spec: MegaSpec):
     return [slice(off[t], off[t + 1]) for t in range(spec.n_lr)]
 
 
-def _two_loop_plain(spec: MegaSpec, G, s_ring, y_ring, rho, head: int):
-    """The L-BFGS direction −q of the two-loop recursion over the ring."""
-    rp, k = spec.rp, spec.k
-    q = G
-    a_vals = []
-    for i in range(k):
-        jj = (head - i) % k
-        s_j = s_ring[jj * rp:(jj + 1) * rp]
-        y_j = y_ring[jj * rp:(jj + 1) * rp]
-        a = rho[jj] * torch.sum(s_j * q)
-        q = q - a * y_j
-        a_vals.append((jj, a))
-    for i in range(k - 1, -1, -1):
-        jj, a = a_vals[i]
-        s_j = s_ring[jj * rp:(jj + 1) * rp]
-        y_j = y_ring[jj * rp:(jj + 1) * rp]
-        bq = rho[jj] * torch.sum(y_j * q)
-        q = q + (a - bq) * s_j
-    return -q
+def _compact_w_plain(k: int, head: int, rho, sty, yty, p):
+    """The compact-form coefficients w (2k) with −H·g = −(g + [S Y]·w):
+    u = R⁻¹Sᵀg, v = D·u + YᵀY·u − Yᵀg, w = [R⁻ᵀv; −u] on the Grams in age
+    order (slot (head + 1 + a) % k for a = 0 oldest .. k − 1), empty slots
+    (ρ = 0) masked with a unit diagonal — lbfgs._direction_compact's
+    algebra, taking p = [Sᵀg; Yᵀg] and the Grams as the kernel has them."""
+    perm = torch.as_tensor([(head + 1 + a) % k for a in range(k)],
+                           device=p.device)
+    empty = rho[perm] == 0.0
+    live = ~(empty[:, None] | empty[None, :])
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    stp = torch.where(live, sty[perm][:, perm], zero)
+    ytp = torch.where(live, yty[perm][:, perm], zero)
+    Rp = torch.triu(stp) + torch.diag(empty.to(p.dtype))
+    u = torch.linalg.solve_triangular(Rp, p[perm][:, None], upper=True)[:, 0]
+    v = torch.diagonal(stp) * u + ytp @ u - p[k + perm]
+    w1 = torch.linalg.solve_triangular(Rp.T, v[:, None], upper=False)[:, 0]
+    w = torch.zeros(2 * k, dtype=p.dtype, device=p.device)
+    w[perm] = w1
+    w[k + perm] = -u
+    return w
 
 
-def _push_plain(spec: MegaSpec, s_ring, y_ring, rho, head: int, alpha,
-                direction, G, G_new) -> int:
-    """Push (s, y) = (α·D, G_new − G) into the ring in place; returns the
-    new head."""
-    rp, k = spec.rp, spec.k
-    head_new = (head + 1) % k
-    s_new = alpha * direction
-    y_new = G_new - G
-    ys = torch.sum(y_new * s_new)
-    s_ring[head_new * rp:(head_new + 1) * rp] = s_new
-    y_ring[head_new * rp:(head_new + 1) * rp] = y_new
-    rho[head_new] = 1.0 / ys
-    return head_new
+def _ring_views(spec: MegaSpec, s_ring, y_ring):
+    """(k, rp·n_pad) views of the kernel-layout rings."""
+    return s_ring.reshape(spec.k, -1), y_ring.reshape(spec.k, -1)
+
+
+def _push_plain(head: int, k: int, S2, Y2, sty, yty, rho, s_new,
+                y_new) -> int:
+    """Push (s, y) into the ring's next slot j (the (k, ·) views S2, Y2,
+    in place) and refresh row and column j of the Grams over the ring
+    after the push; ρ_j = 1/(s_j·y_j). Returns j, the new head."""
+    j = (head + 1) % k
+    S2[j] = s_new.reshape(-1)
+    Y2[j] = y_new.reshape(-1)
+    sty[j, :] = Y2 @ S2[j]
+    sty[:, j] = S2 @ Y2[j]
+    yty[j, :] = Y2 @ Y2[j]
+    yty[:, j] = yty[j, :]
+    rho[j] = 1.0 / sty[j, j]
+    return j
 
 
 def mega_chunk_plain(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
                      s_ring, y_ring, lr_B, lr_Bdt, lr_d):
-    """The kernel's loop, step by step in torch, on the kernel's layout:
-    the same inputs as the CUDA launch, and the same outputs
-    (Rt, G, vio (1, n_pad), oscal). Like the kernel it updates the rings
-    ``s_ring``/``y_ring`` (k·rp, n_pad) in place. The scalar line search
-    runs on the host in the working dtype; everything of size n runs on
-    the tensors' device."""
+    """K1's loop, step by step in torch, on the kernel's layout: the same
+    inputs as the CUDA launch, and the same outputs (Rt, G, vio (1,
+    n_pad), oscal with the ring's SᵀY and YᵀY). Like the kernel it
+    updates the rings ``s_ring``/``y_ring`` (k·rp, n_pad) in place.
+
+    The direction is the compact L-BFGS form on Grams built from the ring
+    at entry and refreshed on every push (its row and column), with the
+    descent test ⟨G, D⟩ = −(gᵀg + wᵀp) from scalars, as the kernel
+    computes them (the Gram bookkeeping of ``mega_chunk_armijo_plain``).
+    The scalar line search runs on the host in the working dtype;
+    everything of size n runs on the tensors' device."""
     k = spec.k
     dtype, dev = Rt_in.dtype, Rt_in.device
     eps = torch.finfo(dtype).eps
@@ -569,19 +631,22 @@ def mega_chunk_plain(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
     obj, vio, vio_lr = state_of(Rt, CRt, Q)
     L_val = al_of(obj, vio, vio_lr)
     G = grad_of(Rt, CRt, Q, vio, vio_lr)
-    gnorm = torch.sqrt(torch.sum(G * G)) / spec.gscale
+    S2, Y2 = _ring_views(spec, s_ring, y_ring)
+    sty, yty = S2 @ Y2.T, Y2 @ Y2.T
+    gsq = torch.sum(G * G)
+    p = torch.cat([S2 @ G.reshape(-1), Y2 @ G.reshape(-1)])
+    gnorm = torch.sqrt(gsq) / spec.gscale
     steps, stag = 0, False
     alpha = torch.zeros((), dtype=dtype, device=dev)
 
     while float(gnorm) > cur_gtol and steps < max_steps and not stag:
-        # direction: two-loop recursion over the ring
+        direction = -G
         if spec.use_hist:
-            direction = _two_loop_plain(spec, G, s_ring, y_ring, rho, head)
-            descent = float(torch.sum(direction * G))
-            if math.isnan(descent) or descent >= 0.0:
-                direction = -G
-        else:
-            direction = -G
+            wc = _compact_w_plain(k, head, rho, sty, yty, p)
+            descent = -(gsq + wc @ p)
+            if not (math.isnan(float(descent)) or float(descent) >= 0.0):
+                W2 = torch.cat([S2, Y2])
+                direction = -(G.reshape(-1) + W2.T @ wc).reshape(G.shape)
 
         # line-search products
         CDt = direction @ C
@@ -626,19 +691,20 @@ def mega_chunk_plain(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
         CRt = CRt + alpha * CDt
         Q = Q + alpha * Qd
 
-        # gradient + norms
+        # gradient, the stagnation test and the ring push (skipped when
+        # stagnating), then the next direction's dots
         G_new = grad_of(Rt, CRt, Q, vio, vio_lr)
-        gnorm = torch.sqrt(torch.sum(G_new * G_new)) / spec.gscale
         L_old_h = host(L_val)
         rel_delta = (L_old_h - L_new_h) / torch.maximum(
             torch.ones_like(L_new_h),
             torch.maximum(L_new_h.abs(), L_old_h.abs()))
         stag = bool(rel_delta < stag_tol)
-
-        # ring push, skipped when stagnating
         if spec.use_hist and not stag:
-            head = _push_plain(spec, s_ring, y_ring, rho, head, alpha,
-                               direction, G, G_new)
+            head = _push_plain(head, k, S2, Y2, sty, yty, rho,
+                               alpha * direction, G_new - G)
+        gsq = torch.sum(G_new * G_new)
+        p = torch.cat([S2 @ G_new.reshape(-1), Y2 @ G_new.reshape(-1)])
+        gnorm = torch.sqrt(gsq) / spec.gscale
         G = G_new
         L_val = L_new
         steps += 1
@@ -654,35 +720,10 @@ def mega_chunk_plain(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
     oscal[7:7 + k] = rho
     for i in range(n_lc):
         oscal[7 + k + i] = vio_lr[i]
+    o = spec.o_gram
+    oscal[o:o + k * k] = sty.reshape(-1)
+    oscal[o + k * k:o + 2 * k * k] = yty.reshape(-1)
     return Rt, G, vio, oscal
-
-
-def _compact_w_plain(k: int, head: int, rho, sty, yty, p):
-    """K2's compact-form coefficients w (2k) with −H·g = −(g + [S Y]·w):
-    u = R⁻¹Sᵀg, v = D·u + YᵀY·u − Yᵀg, w = [R⁻ᵀv; −u] on the Grams in age
-    order (slot (head + 1 + a) % k for a = 0 oldest .. k − 1), empty slots
-    (ρ = 0) masked with a unit diagonal — lbfgs._direction_compact's
-    algebra, taking p = [Sᵀg; Yᵀg] and the Grams as the kernel has them."""
-    perm = torch.as_tensor([(head + 1 + a) % k for a in range(k)],
-                           device=p.device)
-    empty = rho[perm] == 0.0
-    live = ~(empty[:, None] | empty[None, :])
-    zero = torch.zeros((), dtype=p.dtype, device=p.device)
-    stp = torch.where(live, sty[perm][:, perm], zero)
-    ytp = torch.where(live, yty[perm][:, perm], zero)
-    Rp = torch.triu(stp) + torch.diag(empty.to(p.dtype))
-    u = torch.linalg.solve_triangular(Rp, p[perm][:, None], upper=True)[:, 0]
-    v = torch.diagonal(stp) * u + ytp @ u - p[k + perm]
-    w1 = torch.linalg.solve_triangular(Rp.T, v[:, None], upper=False)[:, 0]
-    w = torch.zeros(2 * k, dtype=p.dtype, device=p.device)
-    w[perm] = w1
-    w[k + perm] = -u
-    return w
-
-
-def _ring_views(spec: MegaSpec, s_ring, y_ring):
-    """(k, rp·n_pad) views of the kernel-layout rings."""
-    return s_ring.reshape(spec.k, -1), y_ring.reshape(spec.k, -1)
 
 
 def armijo_steps(alpha_max: float, dtype, device) -> torch.Tensor:
@@ -845,17 +886,8 @@ def mega_chunk_armijo_plain(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB,
             torch.maximum(L_new_h.abs(), L_old_h.abs()))
         stag = bool(rel_delta < stag_tol)
         if spec.use_hist and not stag:
-            # push (s, y) = (α·D, G_new − G) and refresh the slot's row and
-            # column of the Grams over the ring after the push
-            j = (head + 1) % k
-            S2[j] = (alpha * direction).reshape(-1)
-            Y2[j] = (G_new - G).reshape(-1)
-            sty[j, :] = Y2 @ S2[j]
-            sty[:, j] = S2 @ Y2[j]
-            yty[j, :] = Y2 @ Y2[j]
-            yty[:, j] = yty[j, :]
-            rho[j] = 1.0 / sty[j, j]
-            head = j
+            head = _push_plain(head, k, S2, Y2, sty, yty, rho,
+                               alpha * direction, G_new - G)
         gsq = torch.sum(G_new * G_new)
         p = torch.cat([S2 @ G_new.reshape(-1), Y2 @ G_new.reshape(-1)])
         gnorm = torch.sqrt(gsq) / spec.gscale
@@ -900,9 +932,10 @@ class _K1Args(ctypes.Structure):
         + [(f, ctypes.c_void_p) for f in (
             "scal", "C", "Rt_in", "lam", "w", "b", "s_ring", "y_ring",
             "lrB", "lrBdt", "lrd", "Rt_out", "G_out", "vio_out", "oscal",
-            "work", "stream")]
+            "work", "tbuf", "stream")]
         + [(f, ctypes.c_int) for f in (
-            "S", "nblk", "smem_bytes", "sms", "blocks_per_sm")]
+            "S", "nblk", "smem_bytes", "sms", "blocks_per_sm", "c_resident",
+            "ring_resident")]
         + [("work_elems", ctypes.c_longlong)]
     )
 
@@ -982,11 +1015,17 @@ _COMMON_LIMITS = (MAX_RP, 16, MAX_K, MAX_LR_TERMS, MAX_LR_COLS, N_CHUNK)
 _K2_LIMITS = _COMMON_LIMITS + (MAX_DIAG_CHANNELS, MAX_WIDE, N_CAND)
 K1 = CudaKernel("K1", "megakernel.cu", "k1", _K1Args, _COMMON_LIMITS)
 K2 = CudaKernel("K2", "megakernel_armijo.cu", "k2", _K2Args, _K2_LIMITS)
-# Timing builds (-DK2_TIMING): the same sources with per-phase %globaltimer
-# stamps and a barrier count, written to a ``tbuf`` (``k2_phase_times``).
-# Only the measurement of K2's phases launches them (chip_smoke.py phase
-# 8), on their own launch counts; K2_TWOLOOP_TIMED is K2's design before
-# the compact redesign, kept as that measurement's baseline.
+# Timing builds (-DK1_TIMING, -DK2_TIMING): the same sources with
+# per-phase %globaltimer stamps and a barrier count, written to a ``tbuf``
+# (``phase_times``). Only the measurement of the kernels' phases launches
+# them (chip_smoke.py phases 5 and 8), on their own launch counts; the
+# two-loop builds are each kernel's design before its compact redesign,
+# kept as that measurement's baseline.
+K1_TIMED = CudaKernel("K1 timing build", "megakernel.cu", "k1", _K1Args,
+                      _COMMON_LIMITS, defines=("K1_TIMING",))
+K1_TWOLOOP_TIMED = CudaKernel(
+    "K1 two-loop baseline, timing build", "megakernel_twoloop.cu", "k1",
+    _K1Args, _COMMON_LIMITS, defines=("K1_TIMING",))
 K2_TIMED = CudaKernel("K2 timing build", "megakernel_armijo.cu", "k2",
                       _K2Args, _K2_LIMITS, defines=("K2_TIMING",))
 K2_TWOLOOP_TIMED = CudaKernel(
@@ -1040,10 +1079,14 @@ def _ptr(x):
 
 
 def mega_kernel(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
-                s_ring, y_ring, lr_B, lr_Bdt, lr_d):
+                s_ring, y_ring, lr_B, lr_Bdt, lr_d, *, kernel=None,
+                tbuf=None):
     """Launch K1 on CUDA tensors: the same arguments and results as
     ``mega_chunk_plain``; ``s_ring``/``y_ring`` are updated in place. The
-    launch goes on the current stream and does not synchronise."""
+    launch goes on the current stream and does not synchronise.
+    ``kernel`` and ``tbuf`` are for the timing builds only
+    (``phase_times``)."""
+    kernel = K1 if kernel is None else kernel
     dtype, dev = Rt_in.dtype, Rt_in.device
     n, rp, k = spec.n_pad, spec.rp, spec.k
     lrc = int(sum(spec.lr_sizes))
@@ -1058,7 +1101,15 @@ def mega_kernel(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
                b_row=b_row, s_ring=s_ring, y_ring=y_ring, lr_B=lr_B,
                lr_Bdt=lr_Bdt, lr_d=lr_d)
     _check_args("K1", want, got, dtype, dev)
-    a = K1.plan(_args_for(spec, dtype, dev))
+    a = kernel.plan(_args_for(spec, dtype, dev))
+    if kernel.lib.source == K1.lib.source:
+        want = k1_smem_plan(n, rp, k, lrc, torch.finfo(dtype).bits // 8,
+                            a.sms)
+        got = (a.smem_bytes, bool(a.c_resident), bool(a.ring_resident))
+        if want != got:
+            raise RuntimeError(
+                f"K1 plans {got} (shared bytes, C resident, ring "
+                f"resident), the wrapper's mirror {want}")
     Rt_out = torch.empty((rp, n), dtype=dtype, device=dev)
     G_out = torch.empty((rp, n), dtype=dtype, device=dev)
     vio_out = torch.empty((1, n), dtype=dtype, device=dev)
@@ -1070,8 +1121,10 @@ def mega_kernel(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
     a.lrB, a.lrBdt, a.lrd = _ptr(lr_B), _ptr(lr_Bdt), _ptr(lr_d)
     a.Rt_out, a.G_out, a.vio_out = _ptr(Rt_out), _ptr(G_out), _ptr(vio_out)
     a.oscal, a.work = _ptr(oscal), _ptr(work)
+    if tbuf is not None:
+        a.tbuf = _ptr(tbuf)
     a.stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    K1.launch(a)
+    kernel.launch(a)
     return Rt_out, G_out, vio_out, oscal
 
 
@@ -1082,7 +1135,7 @@ def mega_kernel_armijo(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB, WW,
     ``mega_chunk_armijo_plain``; ``s_ring``/``y_ring`` are updated in
     place. The launch goes on the current stream and does not
     synchronise. ``kernel`` and ``tbuf`` are for the timing builds only
-    (``k2_phase_times``)."""
+    (``phase_times``)."""
     kernel = K2 if kernel is None else kernel
     dtype, dev = Rt_in.dtype, Rt_in.device
     n, rp, k, J, n_w = spec.n_pad, spec.rp, spec.k, spec.J, spec.n_wide
@@ -1128,22 +1181,28 @@ def mega_kernel_armijo(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB, WW,
     return Rt_out, G_out, vio_out, oscal
 
 
-def k2_phase_times(kernel, spec: MegaSpec, args: tuple, steps: int):
-    """One launch of a K2 timing build (``K2_TIMED`` or
-    ``K2_TWOLOOP_TIMED``) of exactly ``steps`` iterations from
-    ``mega_inputs``' arguments (the rings are copied first): returns
-    ({phase: µs per iteration}, grid barriers per iteration, barriers at
-    entry), from block 0's %globaltimer sums."""
+def phase_times(kernel, spec: MegaSpec, args: tuple, steps: int):
+    """One launch of a timing build (``K1_TIMED``, ``K1_TWOLOOP_TIMED``,
+    ``K2_TIMED`` or ``K2_TWOLOOP_TIMED``; K2's when ``spec.armijo``) of
+    exactly ``steps`` iterations from ``mega_inputs``' arguments (the
+    rings are copied first): returns ({phase: µs per iteration}, grid
+    barriers per iteration, barriers at entry), from block 0's
+    %globaltimer sums."""
     lib = kernel.lib.built.lib
-    lib.k2_phases.restype = ctypes.c_char_p
-    names = lib.k2_phases().decode().split(",")
+    phases = getattr(lib, f"{kernel.prefix}_phases")
+    phases.restype = ctypes.c_char_p
+    names = phases().decode().split(",")
     scal = args[0].clone()
     scal[3] = steps
     s_ring, y_ring = (x.clone() for x in rings_of(spec, args))
     tbuf = torch.zeros(len(names) + 2, dtype=torch.int64,
                        device=args[0].device)
-    out = mega_kernel_armijo(spec, scal, *args[1:8], s_ring, y_ring,
-                             *args[10:], kernel=kernel, tbuf=tbuf)
+    if spec.armijo:
+        out = mega_kernel_armijo(spec, scal, *args[1:8], s_ring, y_ring,
+                                 *args[10:], kernel=kernel, tbuf=tbuf)
+    else:
+        out = mega_kernel(spec, scal, *args[1:6], s_ring, y_ring,
+                          *args[8:], kernel=kernel, tbuf=tbuf)
     t = tbuf.cpu().tolist()
     done = int(out[3][3].item())
     if done != steps:
@@ -1236,13 +1295,9 @@ def mega_carry(spec: MegaSpec, r: int, m: int, pscale: float, data, lam,
     vio_raw[m] = osc[1]
     lam_t = torch.minimum(data.lam_ub, lam - sigma * vio_raw[:m])
     y_full = torch.cat([-lam_t, torch.ones(1, dtype=dtype, device=dev)])
-    if spec.armijo:
-        o = spec.o_gram
-        sty = osc[o:o + kk * kk].reshape(kk, kk).clone()
-        yty = osc[o + kk * kk:o + 2 * kk * kk].reshape(kk, kk).clone()
-    else:
-        sty = torch.zeros((kk, kk), dtype=dtype, device=dev)
-        yty = torch.zeros((kk, kk), dtype=dtype, device=dev)
+    o = spec.o_gram
+    sty = osc[o:o + kk * kk].reshape(kk, kk).clone()
+    yty = osc[o + kk * kk:o + 2 * kk * kk].reshape(kk, kk).clone()
     new_lbfgs = LBFGSState(
         s_hist=from_kern(s_ring), y_hist=from_kern(y_ring),
         rho=osc[7:7 + kk].clone(), head=int(osc_h[6]), sty=sty, yty=yty)

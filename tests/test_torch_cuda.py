@@ -73,6 +73,38 @@ def test_cuda_kernel_matches_its_plain_version(h100, problem, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r,k", [(10, 4), (64, 16)])
+def test_cuda_kernel_matches_its_plain_version_step_by_step(h100, r, k):
+    """K1 in float64 at every step count 0..25 against its plain version
+    on the CPU: R and the violations to 1e-9, G, the ring and the Grams
+    to 1e-9 of their largest entry (MinBisection from an uncentred R puts
+    entries of ~1e2 into G, whose last bits the card's and the CPU's
+    summation orders set differently); at r = 64 and 16 slots the ring's
+    slab does not fit in shared memory and the kernel reads it from L2."""
+    plan = mk.k1_smem_plan(256, r, k, 1, 8, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert plan[2] == (r == 10), plan
+    as_np = lambda x: x.detach().cpu().double().numpy()
+    for steps in range(26):
+        ck, vk = _run_on("cuda", "minimum_bisection", torch.float64, steps,
+                         r=r, k=k)
+        cp, vp = _run_on("cpu", "minimum_bisection", torch.float64, steps,
+                         r=r, k=k)
+        assert ck.steps == cp.steps == steps
+        for a, b in ((ck.R, cp.R), (ck.vio_raw, cp.vio_raw)):
+            np.testing.assert_allclose(as_np(a), as_np(b), rtol=1e-9,
+                                       atol=1e-9, err_msg=str(steps))
+        for a, b in ((ck.G, cp.G), (ck.lbfgs.s_hist, cp.lbfgs.s_hist),
+                     (ck.lbfgs.y_hist, cp.lbfgs.y_hist),
+                     (ck.lbfgs.sty, cp.lbfgs.sty),
+                     (ck.lbfgs.yty, cp.lbfgs.yty)):
+            ref = max(float(np.max(np.abs(as_np(b)))), 1.0)
+            assert np.max(np.abs(as_np(a) - as_np(b))) <= 1e-9 * ref, steps
+        assert ck.lbfgs.head == cp.lbfgs.head
+        assert abs(float(vk) - float(vp)) < 1e-9
+
+
+@pytest.mark.cuda
 def test_solve_on_the_card_runs_the_kernel(h100):
     A = problems.make_random_graph(200, 0.5, seed=1)
     C, As, b = problems.maxcut(A)
@@ -259,6 +291,22 @@ def test_gather_window_matches_its_plain_version(h100, span, bucket, dtype):
     assert ga.WINDOW.launches == before + 1
     assert torch.equal(got, ga.gather_window_plain(X, wins, offs, span,
                                                    bucket))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [10, 16, 32, 3])
+@pytest.mark.parametrize("idx", sorted(IDX))
+def test_gather_window_row_template_widths(h100, r, idx):
+    """gather_window on the row template: 8-byte vectors at r = 10, 16-byte
+    at 16 and 32, 4-byte at 3; int32 and int64 ids; exact."""
+    g = torch.Generator().manual_seed(r)
+    X = torch.randn((10_000, r), generator=g).cuda()
+    wins = torch.randint(0, 10_000 // 128, (41,), generator=g).to(IDX[idx])
+    offs = torch.randint(0, 128, (41 * 512,), generator=g).to(IDX[idx])
+    got = ga.gather_window(X, wins.cuda(), offs.cuda(), 128, 512)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ga.gather_window_plain(X, wins.cuda(),
+                                                   offs.cuda(), 128, 512))
 
 
 @pytest.mark.cuda

@@ -141,6 +141,23 @@ def test_onehot_matches_pallas(probe2, span, bucket):
                              torch.tensor(offs), 16, span, bucket), want)
 
 
+@pytest.mark.parametrize("r", [10, 32])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_window_gather_widths_and_ids_match_pallas(probe2, r, idx_dtype):
+    """gather_window, which shares gather_rows' row template on the card,
+    at r = 10 (8-byte vectors there) and r = 32, with int32 and int64 ids,
+    against P5 (exps/probe2.py::_onehot_call) at the same width."""
+    X = _X(2048, r)
+    wins, offs = _ids(2048 // 128, 3), _ids(128, (3, 512), seed=2)
+    want = _interpret(probe2._onehot_call, jnp.asarray(X), jnp.asarray(wins),
+                      jnp.asarray(offs), r, 128, 512)
+    got = gather.gather_window(torch.tensor(X), torch.tensor(wins).to(
+        idx_dtype), torch.tensor(offs).to(idx_dtype).reshape(-1), 128, 512)
+    _same(got, want)
+    _same(gather.gather_window_plain(torch.tensor(X), torch.tensor(wins),
+                                     torch.tensor(offs), 128, 512), want)
+
+
 def test_pallas_onehot_matches_pallas(probe_gather, monkeypatch):
     """P6: exps/probe_gather.py::_pallas_onehot_call (span 128, tiles of
     TT = 512; its tile count reads the module's T)."""

@@ -1,5 +1,7 @@
 """K1, the inner-loop megakernel: its plain version against the JAX
-package's Pallas kernel run in interpret mode.
+package's Pallas kernel run in interpret mode, and against the JAX
+package's XLA dense inner loop in the compact L-BFGS form, which K1 and
+its plain version follow.
 
 On the CPU ``mega_chunk`` runs ``mega_chunk_plain``, the kernel's loop
 written step by step in torch; the CUDA kernel itself only runs on an
@@ -16,6 +18,8 @@ from sdplrplus_tpu.models import problems as j_models
 from sdplrplus_tpu.ops.device import to_device as j_to_device
 from sdplrplus_tpu.ops.megakernel import make_mega_inner_chunk
 from sdplrplus_tpu.problem import SDPProblem as JProblem
+from sdplrplus_tpu.solver.al import al_value_grad as j_al_value_grad
+from sdplrplus_tpu.solver.inner import inner_chunk as j_inner_chunk
 from sdplrplus_tpu.solver.lbfgs import lbfgs_init as j_lbfgs_init
 
 from sdplrplus_tpu_torch.compile import compile_problem as t_compile
@@ -60,6 +64,20 @@ def _port_run(dp_t, k, r):
     return run
 
 
+def _xla_run(dp_j, R0, lam, k, steps, stag, compact, jd):
+    """The JAX package's XLA dense inner loop (two-loop or compact L-BFGS
+    direction) from R0, an empty ring of k slots and σ = 2."""
+    f = lambda x: jnp.asarray(x, jd)
+    r = R0.shape[1]
+    L0, vio0, G0, y0, gn0, _ = j_al_value_grad(dp_j, f(R0), f(lam), f(2.0),
+                                               True, True)
+    return j_inner_chunk(
+        dp_j, f(R0), G0, y0, vio0, L0, gn0,
+        j_lbfgs_init(k, dp_j.n_pad, r, jd), f(lam), f(2.0), f(1e-12),
+        f(stag), steps, k=k, use_armijo=False, gtol_relative=True,
+        ptol_relative=True, lbfgs_compact=compact)
+
+
 def _np(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
@@ -80,17 +98,30 @@ def test_plain_version_matches_the_pallas_kernel(problem, k, dtype):
                                   ptol_relative=True, interpret=True)(r)
     run_t = _port_run(dp_t, k, r)
     launches = mk.K1.launches
+    stag = 0.0
     for steps in (1, 25):
         cj, vj = run_j(jnp.asarray(R0, jd), j_lbfgs_init(max(k, 1), dp_j.n_pad,
                                                          r, jd),
                        jnp.asarray(lam, jd), jnp.asarray(2.0, jd),
-                       jnp.asarray(1e-12, jd), jnp.asarray(0.0, jd),
+                       jnp.asarray(1e-12, jd), jnp.asarray(stag, jd),
                        jnp.asarray(steps, jnp.int32))
         ct, vt = run_t(_tt(R0, td), t_lbfgs_init(max(k, 1), dp_t.n_pad, r,
                                                   td),
-                       _tt(lam, td), _tt(2.0, td), 1e-12, 0.0, steps)
+                       _tt(lam, td), _tt(2.0, td), 1e-12, stag, steps)
         assert ct.steps == int(cj.steps) == steps
-        assert ct.stagnated == bool(cj.stagnated)
+        if (problem, k, dtype, steps) == ("cutnorm", 4, "float32", 25):
+            # the plain version takes the compact L-BFGS direction, the
+            # Pallas kernel the two-loop one; in float32 on CutNorm the
+            # plain version, like the JAX package's XLA loop in both
+            # forms, meets rel ΔL < 0 at step 25 (one rounding of L_new
+            # near -773.5) and the Pallas kernel at step 26, so the flag
+            # is held against the XLA loops here
+            assert ct.stagnated and not bool(cj.stagnated)
+            for compact in (True, False):
+                cx, _ = _xla_run(dp_j, R0, lam, k, steps, stag, compact, jd)
+                assert int(cx.steps) == steps and bool(cx.stagnated)
+        else:
+            assert ct.stagnated == bool(cj.stagnated)
         if dtype == "float64":
             tol = 1e-9
             for name in ("R", "G", "vio_raw", "y_full", "L_val",
@@ -118,6 +149,78 @@ def test_plain_version_matches_the_pallas_kernel(problem, k, dtype):
             assert abs(float(ct.grad_norm) - float(cj.grad_norm)) \
                 / (float(cj.grad_norm) + 1e-9) < 0.05
     assert mk.K1.launches == launches   # CPU tensors never launch K1
+
+
+@pytest.mark.parametrize("problem", sorted(FAMILIES))
+@pytest.mark.parametrize("steps", [1, 25])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_plain_version_matches_the_compact_xla_loop(problem, steps, dtype):
+    """K1's plain version (the compact direction on Grams built from the
+    ring at entry and refreshed on every push) against the JAX package's
+    XLA dense inner loop with ``lbfgs_compact=True``, k = 4, with the
+    stagnation test on (tolerance 0): the same steps and stagnation exit,
+    float64 to 1e-9, the Grams it returns equal to those ``lbfgs_push``
+    kept; float32 to the Pallas comparison's tolerances."""
+    k = 4
+    jd, td = DT[dtype]
+    dp_j, dp_t, R0, lam = _setup(problem, dtype)
+    r = R0.shape[1]
+    cj, vj = _xla_run(dp_j, R0, lam, k, steps, 0.0, True, jd)
+    ct, vt = _port_run(dp_t, k, r)(
+        _tt(R0, td), t_lbfgs_init(k, dp_t.n_pad, r, td), _tt(lam, td),
+        _tt(2.0, td), 1e-12, 0.0, steps)
+    assert ct.steps == int(cj.steps) == steps
+    assert ct.stagnated == bool(cj.stagnated)
+    assert ct.lbfgs.head == int(cj.lbfgs.head)
+    if dtype == "float64":
+        tol = 1e-9
+        for name in ("R", "G", "vio_raw", "y_full", "L_val", "grad_norm"):
+            np.testing.assert_allclose(_np(getattr(ct, name)),
+                                       _np(getattr(cj, name)), rtol=tol,
+                                       atol=tol,
+                                       err_msg=f"{name} after {steps}")
+        for name in ("s_hist", "y_hist", "rho", "sty", "yty"):
+            np.testing.assert_allclose(_np(getattr(ct.lbfgs, name)),
+                                       _np(getattr(cj.lbfgs, name)),
+                                       rtol=tol, atol=tol, err_msg=name)
+        assert abs(float(vt) - float(vj)) < tol
+    else:
+        tol = 1e-4 if steps == 1 else 3e-3
+        scale = abs(float(cj.L_val)) + 1.0
+        assert abs(float(ct.L_val) - float(cj.L_val)) / scale < tol
+        for a, b in ((ct.R, cj.R), (ct.vio_raw, cj.vio_raw)):
+            np.testing.assert_allclose(_np(a), _np(b), rtol=tol,
+                                       atol=tol * 10)
+        assert abs(float(vt) - float(vj)) < tol * 10
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_plain_version_takes_any_ring_at_entry(dtype):
+    """K1 rebuilds SᵀY and YᵀY from the ring at entry, so a ring whose
+    Grams were not kept (the state the two-loop design left: zeros) or one
+    that is only partly filled gives the same steps as the ring the
+    kernel itself returned: 2 + 3 steps, with the Grams dropped between
+    them, equal 5 (empty slots, ρ = 0, are masked by age from head)."""
+    jd, td = DT[dtype]
+    dp_j, dp_t, R0, lam = _setup("minbis", dtype)
+    r, k = R0.shape[1], 4
+    run_t = _port_run(dp_t, k, r)
+    Rt, lt, st = _tt(R0, td), _tt(lam, td), _tt(2.0, td)
+    c2, _ = run_t(Rt, t_lbfgs_init(k, dp_t.n_pad, r, td), lt, st, 1e-12,
+                  -np.inf, 2)
+    assert c2.lbfgs.head == 2 and int(torch.sum(c2.lbfgs.rho != 0)) == 2
+    gram = torch.stack([c2.lbfgs.sty, c2.lbfgs.yty])
+    assert float(gram.abs().max()) > 0.0
+    c2.lbfgs.sty.zero_()
+    c2.lbfgs.yty.zero_()
+    c23, _ = run_t(c2.R, c2.lbfgs, lt, st, 1e-12, -np.inf, 3)
+    c5, _ = run_t(Rt, t_lbfgs_init(k, dp_t.n_pad, r, td), lt, st, 1e-12,
+                  -np.inf, 5)
+    atol = 1e-4 if dtype == "float32" else 1e-12
+    np.testing.assert_allclose(_np(c23.R), _np(c5.R), rtol=0, atol=atol)
+    np.testing.assert_allclose(_np(c23.lbfgs.sty), _np(c5.lbfgs.sty),
+                               rtol=atol, atol=atol)
+    assert c23.lbfgs.head == c5.lbfgs.head == 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -194,6 +297,36 @@ def test_eligibility_and_layout_limits(problem):
                                       torch.float32)
     assert not mk.megakernel_eligible(dp_t, 3, mk.MAX_K + 1, False,
                                       torch.float32)
+    # K1 reads the ring from L2 where its slab does not fit, so every rank
+    # and ring length within the layout's limits stays eligible
+    for dtype in (torch.float32, torch.float64):
+        for r in (1, 20, 41, mk.MAX_RP):
+            for k in (1, 4, 8, mk.MAX_K):
+                assert mk.megakernel_eligible(dp_t, r, k, False, dtype), \
+                    (dtype, r, k)
+
+
+def test_k1_smem_plan_fits_every_shape_within_the_layout():
+    """k1_smem_plan finds a launch for every n_pad ≤ 2048, rp ≤ 64, k ≤ 16
+    and lrc ≤ 8 in both dtypes, keeps C's slab resident in float32 up to
+    n_pad 2048 and in float64 up to 896 at the G1 state's rank and ring,
+    and drops the ring's slab before C's."""
+    for itemsize in (4, 8):
+        for n_pad in range(64, mk.MAX_N_PAD + 1, 64):
+            for rp in range(8, mk.MAX_RP + 1, 8):
+                for k in range(1, mk.MAX_K + 1):
+                    for lrc in range(mk.MAX_LR_COLS + 1):
+                        plan = mk.k1_smem_plan(n_pad, rp, k, lrc, itemsize)
+                        assert plan is not None, (n_pad, rp, k, lrc)
+                        assert plan[0] <= mk.SMEM_MAX
+                        assert plan[0] == mk.k1_smem_bytes(
+                            n_pad, rp, k, lrc, itemsize, plan[1], plan[2])
+    assert mk.k1_smem_plan(2048, 16, 4, 0, 4)[1:] == (True, True)
+    assert mk.k1_smem_plan(896, 16, 4, 1, 8)[1:] == (True, True)
+    assert mk.k1_smem_plan(2048, 16, 4, 0, 8)[1] is False
+    # float64, rank 64, 16 slots: neither C's slab nor the ring's fits
+    assert mk.k1_smem_plan(2048, 64, 16, 8, 8)[1:] == (False, False)
+    assert mk.k1_smem_plan(2048, 64, 16, 0, 4)[1:] == (True, False)
 
 
 def test_lovasz_theta_is_not_eligible():
