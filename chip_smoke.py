@@ -24,7 +24,11 @@ from the sources in the checkout and runs these phases, one line each:
               two-loop design left (3 of 4 slots filled, its Grams not
               kept), on a G1-shaped MaxCut (n_pad 896), MinBisection on
               the same graph (one low-rank term) and a G22-shaped MaxCut
-              (n_pad 2048), all at rank 10;
+              (n_pad 2048), all at rank 10; then P1: K1 and its plain
+              version in float64 at r = 64, k = 16 on MinBisection (n =
+              200), steps 0..5, each against the same steps evaluated in
+              longdouble on the host (ops/megakernel_ext.py), every entry
+              of G within a few units (8) of its float64 rounding scale;
   4. slice    the main path: sdplr(...) on the G1-shaped MaxCut in
               float32, with every launch count set to 0 just before and
               read just after; it must run on K1, reach pinfeas and gap
@@ -97,7 +101,24 @@ from the sources in the checkout and runs these phases, one line each:
               the SYN20K inner loop and the warm μ-conductance solve with
               the SpMM's gather through the kernel and through X[idx], in
               turns; and the SYN20K solve's seconds, iterations, rank, dual
-              bounds, block passes and gather launches.
+              bounds, block passes and gather launches;
+ 12. theta    Lovász θ on the G1-shaped graph of phases 4 and 7 (18,645
+              edge constraints and the trace, n_pad 896): sdplr(...) in
+              float32 (trace bound 1, the experiment settings) with every
+              launch count set to 0 just before and read just after; it
+              must run the entry-mask-torch engine on the rescaled problem
+              (entry_rescale_f = 800) with no K1 or K2 launch and one or
+              two gather_rows launches per carry build (fg! through the
+              general A_uu and apply_S), reach pinfeas ≤ 1e-2, land within
+              1e-2 of the JAX package's objective, meet the JAX package's
+              gap (1e-2 if it met it, else its gap + 2e-3), and not
+              over-certify: its gap at least the float64 gap at its own
+              multiplier (λ_min by scipy's eigsh) less 2e-3; then 40
+              iterations of the entry loop at the final state under
+              torch.profiler (ms per iteration, device busy share, top
+              kernels);
+ 13. theta-cycle  θ of the cycle power C_800^7, exactly 100: −obj within
+              1e-2 of it, the gap reported, not gated.
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -148,6 +169,20 @@ MU = 0.1
 JAX_SYN20K_OBJ = -213944.546875
 JAX_SYN20K_ARTIFACT_OBJ = -214563.25
 
+# sdplrplus_tpu.sdplr on the CPU, float32, on the instance of phase 12:
+#   A = make_random_graph(800, 0.83, seed=1); C, As, b = lovasz_theta(A)
+#   sdplr(C, As, b, 10, ptol=1e-2, objtol=1e-2, prior_trace_bound=1.0,
+#         dtype="float32", seed=0)
+# -> obj -147.3308868408203, pinfeas 6.31e-5, gap 7.284e-2 (it does not
+#    certify 1e-2: after the first attempt and the host dual polish, 7.287e-2
+#    -> 7.284e-2, two reseeds found no better), 23193 iterations, 52 major
+#    iterations, rank 194, engine entry-mask, entry_rescale_f 800, 568 s.
+JAX_THETA_G1_OBJ = -147.3308868408203
+JAX_THETA_G1_GAP = 0.07283967199981604
+THETA_MAXTIME = 240.0        # phase 12's solve, polish and reseeds included
+THETA_CYCLE_N = 800          # phase 13: C_n^7, theta = n/8
+THETA_CYCLE_MAXTIME = 90.0
+
 PEAK_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,       # non-tensor FP32
               "float64": 34e12}       # non-tensor FP64
@@ -165,6 +200,327 @@ def nvidia_smi_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def p1_check(dev):
+    """Phase 3's P1 check: the float64 state where K1 and its plain version
+    differ most (MinBisection on a 200-node graph, r = 64, k = 16; at step 2
+    up to 3.3e-9 in G), steps 0..5, K1 on the card and the plain version
+    on the CPU, each against a third evaluation of the same steps on the
+    host in longdouble (ops/megakernel_ext.py). Each float64 value's
+    largest |ΔG| is held, in units of the gradient's float64 rounding
+    scale, to a few units (8), and R and the violations to 1e-9."""
+    import numpy as np
+    import torch
+
+    from sdplrplus_tpu_torch.ops import megakernel as mk
+    from sdplrplus_tpu_torch.ops import megakernel_ext as mx
+
+    as_np = lambda x: x.detach().double().cpu().numpy()
+    p1 = []
+    for steps in range(6):
+        spec, args, _, _ = mx.k1_case(dev, "minimum_bisection", steps)
+        ext = mx.mega_chunk_ext(spec, *args)
+        out_k = mk.mega_kernel(spec, *args)
+        torch.cuda.synchronize()
+        spec_c, args_c, _, _ = mx.k1_case("cpu", "minimum_bisection", steps)
+        out_p = mk.mega_chunk_plain(spec_c, *args_c)
+        rk, rp = mx.rounding_report(ext, out_k), mx.rounding_report(ext, out_p)
+        p1.append(dict(step=steps, K1_vs_plain_dG=float(np.max(np.abs(
+            as_np(out_k[1]) - as_np(out_p[1])))), K1=rk, plain=rp))
+        for rep in (rk, rp):
+            assert rep["dG_in_scale_units"] <= 8.0, (steps, rk, rp)
+            assert rep["max_dR"] <= 1e-9 and rep["max_dvio"] <= 1e-9, \
+                (steps, rk, rp)
+    say("K1", f"P1 (MinBisection n=200 r=64 k=16 float64, steps 0..5, K1 on "
+        f"the card, plain version on the CPU, each against the same steps "
+        f"in longdouble on the host; dG_in_scale_units = max |dG| / (eps * "
+        f"the gradient's rounding scale)): {json.dumps(p1)}")
+    return p1
+
+
+def device_profile(fn, nsteps):
+    """(ms per step by CUDA events, host wall ms per step under
+    torch.profiler, device kernel ms per step, the top kernels by device
+    time): ``fn(steps)`` runs ``steps`` inner iterations. Only the
+    kernels' own events (device type CUDA) count: an operator's event
+    carries the time of the kernels it launched too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(5)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    fn(nsteps)
+    e1.record()
+    torch.cuda.synchronize()
+    step_ms = e0.elapsed_time(e1) / nsteps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn(nsteps)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    dev_us = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[ev.key] = us
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    return (step_ms, wall_ms / nsteps, sum(dev_us.values()) / 1e3 / nsteps,
+            [(k[:60], round(v / nsteps, 2)) for k, v in top])
+
+
+def theta_phase(A, jax_obj, jax_gap, maxtime, zero_counts, smi, dev="cuda"):
+    """Phase 12: Lovász θ of ``A`` through sdplr on the entry-mask engine,
+    float32, r₀ = 10, ptol = objtol = 1e-2, trace bound 1 (the JAX
+    package's experiment settings), with every launch count set to 0 just
+    before and read just after. Each carry build (the first, each rank
+    doubling, each major boundary's re-sync) runs fg! through the general
+    A_uu and apply_S, one gather_rows launch each. The claimed gap is
+    checked on both sides in float64 on the host: the dual by eigsh at the
+    returned multiplier, the primal by rebuilding the feasible point from
+    the returned factor. Then the entry step as a CUDA graph against the
+    eager step, and 40 inner iterations of the entry loop at the solve's
+    final state under torch.profiler. Returns the result dict."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse.linalg import LinearOperator, eigsh
+
+    from sdplrplus_tpu_torch import sdplr
+    from sdplrplus_tpu_torch.compile import compile_problem
+    from sdplrplus_tpu_torch.config import SolverConfig
+    from sdplrplus_tpu_torch.models import lovasz_theta
+    from sdplrplus_tpu_torch.ops import gather as ga
+    from sdplrplus_tpu_torch.ops import megakernel as mk
+    from sdplrplus_tpu_torch.ops.device import to_device
+    from sdplrplus_tpu_torch.problem import SDPProblem
+    from sdplrplus_tpu_torch.solver import major as major_mod
+    from sdplrplus_tpu_torch.solver.al import al_value_grad
+    from sdplrplus_tpu_torch.solver.inner_entry import (
+        EntryGraphs, entry_chunk,
+    )
+    from sdplrplus_tpu_torch.solver.lbfgs import lbfgs_init
+    from sdplrplus_tpu_torch.solver.outer import (
+        ENGINE_ENTRY, _maybe_rescale_entry,
+    )
+
+    C, As, b = lovasz_theta(A)
+    n = A.shape[0]
+    carry_builds = [0]
+    real_fg = major_mod._fg
+
+    def counted_fg(*a, **k):
+        carry_builds[0] += 1
+        return real_fg(*a, **k)
+
+    major_mod._fg = counted_fg
+    zero_counts()
+    t0 = time.time()
+    try:
+        res = sdplr(C, As, b, RANK, ptol=1e-2, objtol=1e-2,
+                    prior_trace_bound=1.0, dtype="float32", seed=0,
+                    printlevel=0, maxtime=maxtime, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        major_mod._fg = real_fg
+    solve_s = time.time() - t0
+    launches = {k.name: k.launches for k in (mk.K1, mk.K2) + ga.KERNELS}
+    obj, pinf, gap = res["obj"], res["primal_vio"], res["rel_duality_gap"]
+    rel = abs(obj - jax_obj) / abs(jax_obj)
+    # no over-certification: λ_min of S(y) = C + Σ yᵢAᵢ at the returned
+    # multiplier, in the user's scale, by float64 eigsh on the host
+    t0 = time.time()
+    y = -np.asarray(res["lambda"], np.float64)
+    Y = sp.csr_matrix((np.concatenate([y_i * A_.vals
+                                       for y_i, A_ in zip(y, As)]),
+                       (np.concatenate([A_.rows for A_ in As]),
+                        np.concatenate([A_.cols for A_ in As]))),
+                      shape=(n, n))
+    S_op = LinearOperator((n, n), dtype=np.float64,
+                          matvec=lambda x: Y @ x + C.B @ (C.d * (C.B.T @ x)))
+    lam_min = float(eigsh(S_op, k=1, which="SA", tol=1e-10)[0][0])
+    eig_s = time.time() - t0
+    dual64 = float(-y @ b) + 1.0 * min(lam_min, 0.0)
+    obj_f = res["obj_feasible"] if res["obj_feasible"] is not None else obj
+    gap64 = (obj_f - dual64) / min(abs(obj_f), abs(dual64))
+    # and on the primal side: the feasible point the claimed objective
+    # stands for, rebuilt from the returned factor in float64: M = RRᵀ/Tr
+    # zeroed on the edges, mixed with I/n at t = δ/(δ + 1/n), δ = −λ_min(M)
+    # by numpy's full eigvalsh; PSD, trace 1, edges 0; with I/n and the
+    # greedy independent set by row weight (χχᵀ/|S|) the lowest of the
+    # three objectives is no more than 1e-9 above the claimed one
+    Rf = np.asarray(res["R"], np.float64)
+    Xf = Rf @ Rf.T
+    M = Xf / np.trace(Xf)
+    er, ec = A.nonzero()
+    E_f = np.linalg.norm(M[er, ec])
+    M[er, ec] = 0.0
+    d_eig = max(0.0, -float(np.linalg.eigvalsh(M)[0]))
+    t_p = d_eig / (d_eig + 1.0 / n)
+    Xt = (1.0 - t_p) * M + (t_p / n) * np.eye(n)
+    cobj = lambda Y: float(np.sum(C.d * np.sum(C.B * (Y @ C.B), axis=0)))
+    adj = sp.csr_matrix(A)
+    chosen, blocked = [], np.zeros(n, dtype=bool)
+    for v in np.argsort(-np.sum(Rf * Rf, axis=1)):
+        if not blocked[v]:
+            chosen.append(v)
+            blocked[v] = True
+            blocked[adj.indices[adj.indptr[v]:adj.indptr[v + 1]]] = True
+    chi = np.zeros(n)
+    chi[chosen] = 1.0
+    assert np.all(chi[er] * chi[ec] == 0.0)
+    obj_p = min(cobj(Xt), cobj(np.eye(n) / n),
+                cobj(np.outer(chi, chi) / len(chosen)))
+    t_fro = E_f / (E_f + 1.0 / n)
+    obj_fro = (1.0 - t_fro) * cobj(M) + t_fro * cobj(np.eye(n) / n)
+    gap_fro = (obj_fro - res["max_dual_value"]) / min(
+        abs(obj_fro), abs(res["max_dual_value"]))
+    assert float(np.linalg.eigvalsh(Xt)[0]) >= -1e-12
+    assert abs(np.trace(Xt) - 1.0) <= 1e-12 and np.all(Xt[er, ec] == 0.0)
+    assert obj_p <= obj_f + 1e-9 * abs(obj_f), (obj_p, obj_f)
+    if jax_gap <= 1e-2:
+        gap_rule, gap_lim = "gap <= 1e-2", 1e-2
+    else:
+        gap_rule = f"gap <= the JAX package's {jax_gap:.4e} + 2e-3"
+        gap_lim = jax_gap + 2e-3
+    say("theta", f"Lovasz theta n={n} m={len(b)}: engine "
+        f"{res['inner_engine']}, entry_rescale_f "
+        f"{res.get('entry_rescale_f')}, launches {launches} for "
+        f"{carry_builds[0]} carry builds, obj {obj!r}, obj_feasible "
+        f"{res['obj_feasible']!r}, pinfeas {pinf:.3e}, gap {gap:.4e} "
+        f"({gap_rule}), iterations {res['iter']}, majors "
+        f"{res['majoriter']}, rank {res['r']}, dual bounds "
+        f"{res['dual_bounds_computed']} with {res['dual_passes']} Lanczos "
+        f"passes (final rank), polish {res.get('dual_refine_time', 0.0):.1f}"
+        f" s, reseed attempts {res.get('reseed_attempts', 0)}, timed out "
+        f"{res['timed_out']}, |obj - JAX|/|JAX| {rel:.3e}; float64 eigsh at "
+        f"the returned multiplier: lambda_min {lam_min:.6e}, dual "
+        f"{dual64!r}, gap {gap64:.4e} ({eig_s:.1f} s); primal side from "
+        f"the returned factor: -lambda_min of the edge-zeroed point "
+        f"{d_eig:.4e} (|E|_F {E_f:.4e}), feasible objective {obj_p!r} "
+        f"(the same repair at delta = |E|_F: "
+        f"{obj_fro!r}, gap {gap_fro:.4e}); solve {solve_s:.3f} s")
+    assert res["inner_engine"] == ENGINE_ENTRY, res["inner_engine"]
+    assert res["entry_rescale_f"] == float(n), res["entry_rescale_f"]
+    assert launches["K1"] == launches["K2"] == 0, launches
+    assert 0 < carry_builds[0] <= launches["gather_rows"] \
+        <= 2 * carry_builds[0], (launches, carry_builds)
+    assert np.isfinite(obj) and np.all(np.isfinite(res["R"]))
+    assert res["R"].shape == (n, res["r"])
+    assert pinf <= 1e-2, pinf
+    assert rel <= 1e-2, (obj, jax_obj)
+    assert gap <= gap_lim, (gap, gap_lim)
+    assert gap >= gap64 - 2e-3, (gap, gap64)
+
+    # where an iteration goes: the entry loop at the solve's final state,
+    # on the rescaled problem the solver ran
+    prob, _, f = _maybe_rescale_entry(
+        SDPProblem(C, As, np.asarray(b, np.float64), None),
+        SolverConfig(prior_trace_bound=1.0))
+    dp = to_device(compile_problem(prob), torch.float32, dev)
+    r = res["r"]
+    R = torch.zeros((dp.n_pad, r), device=dev)
+    R[:n] = torch.tensor(res["R"] * np.sqrt(f), dtype=torch.float32,
+                         device=dev)
+    lam = torch.tensor(res["lambda_last"] / f, dtype=torch.float32,
+                       device=dev)
+    sigma = torch.tensor(res["sigma"], dtype=torch.float32, device=dev)
+    L0, vio0, G0, _, gn0, _ = al_value_grad(dp, R, lam, sigma, True, True)
+
+    graphs = EntryGraphs()     # one capture, replayed by every call
+
+    def steps_of(steps, graph=None):
+        c, _ = entry_chunk(dp, R, G0, vio0, L0, gn0,
+                           lbfgs_init(K, dp.n_pad, r, torch.float32, dev),
+                           lam, sigma, -1.0, float("-inf"), steps, k=K,
+                           gtol_relative=True, ptol_relative=True,
+                           graph=graph, graphs=graphs)
+        assert c.steps == steps
+        return c
+
+    # the step replayed as a CUDA graph against the same step run eagerly
+    # (the same operations on the same inputs): 10 steps, R and the
+    # violations to 1e-5 of their largest entry (float32)
+    cg, ce = steps_of(10), steps_of(10, graph=False)
+    graph_err = max(
+        float((cg.R - ce.R).abs().max() / ce.R.abs().max()),
+        float((cg.vio_raw - ce.vio_raw).abs().max()
+              / ce.vio_raw.abs().max()))
+    assert graph_err <= 1e-5, graph_err
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    steps_of(5, graph=False)
+    e0.record()
+    steps_of(20, graph=False)
+    e1.record()
+    torch.cuda.synchronize()
+    eager_ms = e0.elapsed_time(e1) / 20
+
+    nsteps = 40
+    step_ms, wall_ms, dev_ms, top = device_profile(steps_of, nsteps)
+    say("profile", f"theta entry-mask inner loop at rank {r} (n_pad "
+        f"{dp.n_pad}): {step_ms:.3f} ms per iteration as a CUDA graph "
+        f"(CUDA events, {nsteps} steps; eager, the same step unrolled: "
+        f"{eager_ms:.3f} ms; graph against eager after 10 steps: "
+        f"{graph_err:.2e} of the largest entry); under torch.profiler "
+        f"{wall_ms:.3f} ms per "
+        f"iteration of host wall, {dev_ms:.4f} ms of device kernel time per "
+        f"iteration (device busy {dev_ms / wall_ms:.3%}); top kernels by "
+        f"device time per iteration (us): {json.dumps(top)}; solve "
+        f"{solve_s:.3f} s over {res['iter']} iterations = "
+        f"{1e3 * solve_s / max(res['iter'], 1):.3f} ms per iteration; "
+        f"nvidia-smi: {smi}")
+    res["solve_s"] = solve_s
+    res["launches"] = launches
+    return res
+
+
+def theta_cycle_phase(n, maxtime, zero_counts, dev="cuda"):
+    """Phase 13: θ of the cycle power C_n^7, exactly n/8 (n divisible by
+    8): −obj within 1e-2 of it; the gap is reported, not gated (the JAX
+    package's θ certifies 1e-2 only up to n ≈ 800)."""
+    import numpy as np
+    import torch
+
+    from sdplrplus_tpu_torch import sdplr
+    from sdplrplus_tpu_torch.models import lovasz_theta, synthetic_cycle_power
+    from sdplrplus_tpu_torch.ops import gather as ga
+    from sdplrplus_tpu_torch.ops import megakernel as mk
+    from sdplrplus_tpu_torch.solver.outer import ENGINE_ENTRY
+
+    A = synthetic_cycle_power(n, 7)
+    C, As, b = lovasz_theta(A)
+    theta = n / 8.0
+    zero_counts()
+    t0 = time.time()
+    res = sdplr(C, As, b, RANK, ptol=1e-2, objtol=1e-2, prior_trace_bound=1.0,
+                dtype="float32", seed=0, printlevel=0, maxtime=maxtime,
+                device=dev)
+    torch.cuda.synchronize()
+    solve_s = time.time() - t0
+    rel = abs(-res["obj"] - theta) / theta
+    say("theta-cycle", f"Lovasz theta of the cycle power C_{n}^7 "
+        f"({A.nnz // 2} edges, theta = {theta:g} exactly): engine "
+        f"{res['inner_engine']}, gather_rows launches {ga.ROWS.launches}, "
+        f"obj {res['obj']!r}, |-obj - theta|/theta {rel:.3e}, pinfeas "
+        f"{res['primal_vio']:.3e}, gap {res['rel_duality_gap']:.4e} "
+        f"(reported, not gated), iterations {res['iter']}, majors "
+        f"{res['majoriter']}, rank {res['r']}, dual bounds "
+        f"{res['dual_bounds_computed']}, polish "
+        f"{res.get('dual_refine_time', 0.0):.1f} s, reseed attempts "
+        f"{res.get('reseed_attempts', 0)}, timed out {res['timed_out']}; "
+        f"solve {solve_s:.3f} s")
+    assert res["inner_engine"] == ENGINE_ENTRY, res["inner_engine"]
+    assert mk.K1.launches == mk.K2.launches == 0
+    assert ga.ROWS.launches > 0
+    assert np.isfinite(res["obj"]) and np.all(np.isfinite(res["R"]))
+    assert rel <= 1e-2, (res["obj"], theta)
+    res["solve_s"] = solve_s
+    return res
 
 
 def main():
@@ -404,6 +760,8 @@ def main():
                 f"{', Grams included' if dname == 'float64' else ''}), "
                 f"5+5 = 10 steps, 5 steps from a ring without Grams, gtol exit "
                 f"after {ce.steps} (plain {pe.steps}) steps")
+
+    p1_check(dev)
 
     # ---- 4. the slice ------------------------------------------------------
     A = g800
@@ -1102,8 +1460,6 @@ def main():
     # where an iteration of the SYN20K solve goes: 40 inner steps of the
     # torch fast-diagonal loop at the solve's final factor (rank 20),
     # timed with CUDA events, with torch.profiler's device time by kernel
-    from torch.profiler import ProfilerActivity, profile
-
     r_fin = res3["r"]
     R_fin = torch.zeros((dp_syn.n_pad, r_fin), device=dev)
     R_fin[:n_syn] = torch.tensor(res3["R"], device=dev)
@@ -1123,44 +1479,18 @@ def main():
         assert c.steps == steps
         return c
 
-    syn_steps(5)
     nsteps = 40
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    syn_steps(nsteps)
-    e1.record()
-    torch.cuda.synchronize()
-    step_ms = e0.elapsed_time(e1) / nsteps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        syn_steps(nsteps)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.time() - t0) * 1e3
-    # the kernels' own events (device type CUDA) only: an operator's
-    # event carries the time of the kernels it launched too, and would
-    # count it twice; the all-event sum is printed beside it
-    dev_us, all_us = {}, 0.0
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0) or 0
-        all_us += us
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us[ev.key] = us
-    dev_total_ms = sum(dev_us.values()) / 1e3
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
-    busy = dev_total_ms / prof_wall_ms if prof_wall_ms > 0 else 0.0
+    step_ms, wall_ms, dev_ms, top = device_profile(syn_steps, nsteps)
     say("profile", f"SYN20K torch fast-diagonal inner loop at rank {r_fin}: "
         f"{step_ms:.3f} ms per iteration (CUDA events, {nsteps} steps); "
-        f"under torch.profiler {prof_wall_ms / nsteps:.3f} ms per iteration "
-        f"of host wall, {dev_total_ms / nsteps:.4f} ms of device kernel "
-        f"time per iteration (device busy {busy:.3%}; all events, "
-        f"operators included: {all_us / 1e3 / nsteps:.4f} ms); top "
-        f"kernels by device time per iteration (us): "
-        f"{json.dumps([(k[:60], round(v / nsteps, 2)) for k, v in top])}; "
-        f"solve {syn_s:.3f} s over {res3['iter']} iterations = "
-        f"{1e3 * syn_s / max(res3['iter'], 1):.3f} ms per iteration")
+        f"under torch.profiler {wall_ms:.3f} ms per iteration of host wall, "
+        f"{dev_ms:.4f} ms of device kernel time per iteration (device busy "
+        f"{dev_ms / wall_ms:.3%}); top kernels by device time per iteration "
+        f"(us): {json.dumps(top)}; solve {syn_s:.3f} s over {res3['iter']} "
+        f"iterations = {1e3 * syn_s / max(res3['iter'], 1):.3f} ms per "
+        f"iteration")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
     # the gather end to end: the same work with the SpMM's row gather
     # through the kernel and through its plain version X[idx], in turns
     # (kernel, plain, plain, kernel): 40 steps of the SYN20K loop above
@@ -1222,6 +1552,11 @@ def main():
         f" per iteration, {syn_spmms} ELL SpMMs); gather_rows launches on "
         f"the mu-conductance solve {rows2} ({spmms2} SpMMs); nvidia-smi: "
         f"{smi}")
+
+    # ---- 12. Lovász θ on the entry-mask engine, 13. its analytic anchor ----
+    theta_phase(g800, JAX_THETA_G1_OBJ, JAX_THETA_G1_GAP, THETA_MAXTIME,
+                zero_counts, smi)
+    theta_cycle_phase(THETA_CYCLE_N, THETA_CYCLE_MAXTIME, zero_counts)
 
     def probe_row(kernel):
         return next(p for p in probe_rows if p["kernel"] == kernel)

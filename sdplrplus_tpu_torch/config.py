@@ -110,9 +110,9 @@ class SolverConfig:
     # takes the torch inner loop (the name is kept from the JAX package).
     inner_impl: str = "auto"
     lanczos_tol_scale: float = 1.0
-    # block-Lanczos dual bound: 0 = auto (block path for n > 4096),
-    # -1 = always scalar, > 0 = force this block size. The block path is
-    # a later slice of the port and raises NotImplementedError.
+    # block-Lanczos dual bound (ops/blocklanczos.py): 0 = auto (block
+    # path for n > 4096, or when the scalar schedule wants more than 1024
+    # steps), -1 = always scalar, > 0 = force this block size.
     lanczos_block: int = 0
     # checkpoint/resume, profiling and multi-device runs are later
     # slices of the port: setting them raises NotImplementedError.

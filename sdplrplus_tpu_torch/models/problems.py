@@ -328,3 +328,31 @@ def synthetic_graph(n: int, deg: int, seed: int = 1) -> sp.csr_matrix:
         (np.ones(keep.sum()), (rows[keep], cols[keep])), shape=(n, n)
     )
     return A.maximum(A.T)
+
+
+def synthetic_cycle_power(n: int, k: int) -> sp.csr_matrix:
+    """Cycle power graph C_n^k: i ~ j iff 0 < |i-j| mod n ≤ k (the JAX
+    package's experiment-script generator). With (k+1) | n its Lovász
+    number is exactly θ = n/(k+1): the independent set {0, k+1, ...}
+    gives a rank-1 feasible X with ⟨-11ᵀ, X⟩ = -n/(k+1), and the
+    circulant dual matches, so θ solves carry an analytic anchor."""
+    offs = np.arange(1, k + 1)
+    rows = np.repeat(np.arange(n), k)
+    cols = (rows + np.tile(offs, n)) % n
+    A = sp.csr_matrix((np.ones(n * k), (rows, cols)), shape=(n, n))
+    return A.maximum(A.T)
+
+
+def synthetic_cliques(n: int, s: int) -> sp.csr_matrix:
+    """Disjoint union of n/s cliques of size s (the JAX package's
+    experiment-script generator). Its Lovász number is exactly θ = n/s
+    (clique-cover number = independence number; one vertex per clique
+    gives a rank-1 optimal X)."""
+    K = n // s
+    base = np.repeat(np.arange(K) * s, s * (s - 1))
+    i_loc = np.tile(np.repeat(np.arange(s), s - 1), K)
+    j_loc = np.tile(
+        np.concatenate([np.delete(np.arange(s), i) for i in range(s)]), K)
+    rows = base + i_loc
+    cols = base + j_loc
+    return sp.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))

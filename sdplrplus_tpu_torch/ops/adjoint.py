@@ -1,12 +1,17 @@
-"""Adjoint operator 𝒜ᵀ on the dense and fast-diagonal engines:
-S = Σᵢ yᵢAᵢ + y_m·C applied to a dense factor (the gradient G = 2·S·R
-and the Lanczos matvec S·v).
+"""Adjoint operator 𝒜ᵀ: S = Σᵢ yᵢAᵢ + y_m·C applied to a dense factor
+(the gradient G = 2·S·R and the Lanczos matvec S·v).
 
-Counterpart of the JAX package's ``ops/adjoint.py`` for problems whose
-sparse-constraint entries all lie on the diagonal:
+Counterpart of the JAX package's ``ops/adjoint.py``. When every
+sparse-constraint entry lies on the diagonal,
 S@X = y_m·(C@X) + diag(w·y)⊙X + Σ_t y_t·B_t(d_t ⊙ B_tᵀX), with C@X a
-matmul (dense engine) or one ELL SpMM (fast-diagonal engine). The
+matmul (dense engine) or one ELL SpMM (fast-diagonal engine); the
 ``*_cx`` forms take C@X precomputed (the inner loop's carried CX).
+
+With off-diagonal entries (Lovász θ) S is assembled at the aggregate
+triu pattern (``assemble_s_tri``: each position gathers its few
+constraint weights from y) and applied by one ELL SpMM whose values are
+those of S looked up through ``ell_tri`` / ``ell2_tri`` (the general
+``apply_S``; its row gather is ``gather_rows`` on the card).
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ from __future__ import annotations
 import torch
 
 from .device import DeviceProblem
-from .forward import _C_times
+from .forward import _C_times, is_general
+from .spmm import spmm_ell
 
 
 def diag_weights(dp: DeviceProblem, y_full: torch.Tensor) -> torch.Tensor:
@@ -28,16 +34,47 @@ def apply_S_cx(dp: DeviceProblem, y_full: torch.Tensor, X: torch.Tensor,
                CX: torch.Tensor) -> torch.Tensor:
     """S @ X with CX = C@X precomputed."""
     out = y_full[dp.m] * CX + diag_weights(dp, y_full)[:, None] * X
+    return _apply_lowrank(dp, y_full, X, out)
+
+
+def assemble_s_tri(dp: DeviceProblem, y_full: torch.Tensor) -> torch.Tensor:
+    """Values of S at the aggregate triu pattern -> (P_pad,):
+    s_tri[p] = c_val_one[p]·y[m] + Σⱼ pos_val[p,j]·y[pos_cid[p,j]].
+    Padding slots carry zero weights and are exactly zero; ELL padding
+    entries point at the last (zero) slot (reference:
+    src/coreop.jl:205-258)."""
+    g = y_full[dp.pos_cid.reshape(-1)].reshape(dp.pos_cid.shape)
+    return dp.c_val_one * y_full[dp.m] + torch.sum(dp.pos_val * g, dim=1)
+
+
+def s_tri_for(dp: DeviceProblem, y_full: torch.Tensor):
+    """``assemble_s_tri`` where the general ``apply_S`` needs it, else
+    None (the diagonal engines read S from C and the diagonal weights)."""
+    return assemble_s_tri(dp, y_full) if is_general(dp) else None
+
+
+def _apply_lowrank(dp: DeviceProblem, y_full, X, out):
     for t in dp.lowrank:
-        BtX = t.B.T @ X
-        out = out + y_full[t.gid] * (t.B @ (t.d[:, None] * BtX))
+        out = out + y_full[t.gid] * (t.B @ (t.d[:, None] * (t.B.T @ X)))
     return out
 
 
-def apply_S(dp: DeviceProblem, y_full: torch.Tensor,
-            X: torch.Tensor) -> torch.Tensor:
-    """S @ X for X of shape (n_pad, r)."""
-    return apply_S_cx(dp, y_full, X, _C_times(dp, X))
+def apply_S(dp: DeviceProblem, y_full: torch.Tensor, X: torch.Tensor,
+            s_tri=None) -> torch.Tensor:
+    """S @ X for X of shape (n_pad, r). On the general path S's values
+    come from ``s_tri`` (assembled from y_full when not given) through
+    one ELL SpMM."""
+    if not is_general(dp):
+        return apply_S_cx(dp, y_full, X, _C_times(dp, X))
+    if s_tri is None:
+        s_tri = assemble_s_tri(dp, y_full)
+    if dp.has_ell2:
+        out = spmm_ell(X, dp.ell_cols, s_tri[dp.ell_tri], dp.ell2_rows,
+                       dp.ell2_cols, s_tri[dp.ell2_tri], ids=dp.ell_ids)
+    else:
+        out = spmm_ell(X, dp.ell_cols, s_tri[dp.ell_tri],
+                       ids=dp.ell_ids[:dp.ell_cols.numel()])
+    return _apply_lowrank(dp, y_full, X, out)
 
 
 def y_of(dp: DeviceProblem, lam, sigma, vio_raw) -> torch.Tensor:
@@ -55,4 +92,7 @@ def gradient_cx(dp: DeviceProblem, R, CX, lam, sigma, vio_raw):
 
 def gradient(dp: DeviceProblem, R, lam, sigma, vio_raw):
     """G = 2·S·R with y = [-min(λ_ub, λ - σ v); 1]. Returns (G, y_full)."""
+    if is_general(dp):
+        y_full = y_of(dp, lam, sigma, vio_raw)
+        return 2.0 * apply_S(dp, y_full, R), y_full
     return gradient_cx(dp, R, _C_times(dp, R), lam, sigma, vio_raw)

@@ -49,7 +49,7 @@ import math
 import numpy as np
 import torch
 
-from .adjoint import apply_S
+from .adjoint import apply_S, s_tri_for
 from .device import DeviceProblem
 from .lanczos import _row_mask
 
@@ -232,7 +232,8 @@ def _deflate(W, hist_j, scale, generator, row_mask):
 
 def block_lanczos_min_eig(dp: DeviceProblem, y_full, generator, R,
                           margin_target, k_min, *, b: int, k_max: int,
-                          check_every: int = 2, seed_draws=None):
+                          check_every: int = 2, seed_draws=None,
+                          S_dense=None):
     """Certified λ_min estimate of S(y_full) via R-seeded block Lanczos.
 
     Returns (theta, margin, k_used): the safeguarded estimate is
@@ -241,8 +242,10 @@ def block_lanczos_min_eig(dp: DeviceProblem, y_full, generator, R,
     depth; or on breakdown; or after k_max steps. ``k_min`` forces a
     minimum Krylov depth. θ and margin are rounded to the working dtype,
     where the JAX package keeps them. ``seed_draws`` hands the start
-    block's random numbers in (see ``_seed_block``)."""
+    block's random numbers in (see ``_seed_block``). ``S_dense``: S
+    assembled densely (entry mode), each block step one product."""
     dtype, dev = y_full.dtype, y_full.device
+    s_tri = s_tri_for(dp, y_full) if S_dense is None else None
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     rnd = lambda x: float(np_dtype(x))
     margin_target = rnd(margin_target)
@@ -267,7 +270,8 @@ def block_lanczos_min_eig(dp: DeviceProblem, y_full, generator, R,
     j = 0
     while j < k_max:
         hist[j] = V
-        W = apply_S(dp, y_full, V)
+        W = S_dense @ V if S_dense is not None \
+            else apply_S(dp, y_full, V, s_tri)
         W = W - V_prev @ B_prev.T
         A_j = V.T @ W
         A_j = 0.5 * (A_j + A_j.T)

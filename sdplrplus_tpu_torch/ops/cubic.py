@@ -91,11 +91,15 @@ def minimize_quartic(coeffs, alpha_max):
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     roots = cubic_real_roots(4.0 * a / scale, 3.0 * b / scale,
                              2.0 * c / scale, d / scale)
-    alpha_max = torch.as_tensor(alpha_max, dtype=e.dtype, device=e.device)
+    # a fill, not a host-to-device copy, so the entry loop's step can be
+    # captured in a CUDA graph (solver/inner_entry.py)
+    alpha_max = (alpha_max.to(e.dtype) if torch.is_tensor(alpha_max)
+                 else torch.full_like(e, alpha_max))
     zero = torch.zeros_like(alpha_max)
     cands = torch.cat([roots, torch.stack([alpha_max, zero])])
     cands = torch.where(torch.isnan(cands), zero,
                         torch.minimum(torch.clamp(cands, min=0.0), alpha_max))
     f = e + cands * (d + cands * (c + cands * (b + cands * a)))
-    i = torch.argmin(f)
-    return cands[i], f[i]
+    # gather, not f[i]: a 0-dim index tensor would be read on the host
+    i = torch.argmin(f).reshape(1)
+    return cands.gather(0, i).reshape(()), f.gather(0, i).reshape(())

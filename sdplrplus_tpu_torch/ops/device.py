@@ -75,7 +75,7 @@ class DeviceProblem:
     vio_lb: torch.Tensor
     lowrank: Tuple[DeviceLowRank, ...]
     C_dense: _T = None            # (n_pad, n_pad) dense C (dense mode)
-    entry_gids: _T = None         # entrywise mode (a later slice)
+    entry_gids: _T = None         # entrywise mode (ops/entrymask.py)
     entry_rows: _T = None
     entry_cols: _T = None
     ew_c2: _T = None
@@ -96,6 +96,9 @@ class DeviceProblem:
     # the ELL SpMM's one row gather: tier-1 column ids, then tier-2's
     # (n_pad·W + R2·W2,), built once with the problem (ops/spmm.py)
     ell_ids: _T = None
+    # the general forward operator's one row gather: the aggregate
+    # pattern's rows, then its columns (2·P_pad,) (ops/forward.py)
+    uv_ids: _T = None
 
     # -- static metadata -----------------------------------------------------
     n: int = 0
@@ -163,7 +166,8 @@ def device_problem(arrays: dict, lowrank, statics: dict, dtype,
                    device) -> DeviceProblem:
     """Build a DeviceProblem from numpy arrays by field name (float fields
     cast to ``dtype``, index fields to int64; None stays None), with the
-    SpMM's concatenated column ids ``ell_ids``."""
+    SpMM's concatenated column ids ``ell_ids`` and the general forward
+    operator's ``uv_ids``."""
     kw = {}
     for f in FLOAT_FIELDS:
         v = arrays.get(f)
@@ -181,6 +185,8 @@ def device_problem(arrays: dict, lowrank, statics: dict, dtype,
         if kw["ell2_cols"] is not None:
             tiers.append(kw["ell2_cols"].reshape(-1))
         kw["ell_ids"] = torch.cat(tiers)
+    if kw["agg_rows"] is not None:
+        kw["uv_ids"] = torch.cat([kw["agg_rows"], kw["agg_cols"]])
     return DeviceProblem(lowrank=lr, **kw, **statics)
 
 

@@ -1,22 +1,28 @@
-"""Forward constraint operator 𝒜 on the dense and fast-diagonal engines.
+"""Forward constraint operator 𝒜: the constraint values ⟨Aᵢ, UUᵀ⟩ and
+the objective ⟨C, UUᵀ⟩.
 
-Counterpart of the JAX package's ``ops/forward.py`` for problems whose
-sparse-constraint entries all lie on the diagonal. The constraint values
-are then per-row dots gathered through ``con_rows`` (wide diagonal
-constraints, such as μ-conductance's volume constraint, through the
-dense ``wide_diag_w`` rows), and ⟨C, UVᵀ⟩ = ⟨U, CV⟩ needs one product
-with C:
+Counterpart of the JAX package's ``ops/forward.py``. Problems whose
+sparse-constraint entries all lie on the diagonal take per-row dots
+gathered through ``con_rows`` (wide diagonal constraints, such as
+μ-conductance's volume constraint, through the dense ``wide_diag_w``
+rows), and ⟨C, UVᵀ⟩ = ⟨U, CV⟩ needs one product with C:
 
   * dense engine (C held dense): a matmul C@V;
   * fast-diagonal engine (C sparse, ``C_dense`` is None): one ELL SpMM
     ``spmm_C``; the inner loop carries CX = C@R, so the ``*_cx`` forms
     take that product precomputed.
 
-Low-rank operands are tall-skinny matmuls UᵀB. Problems with off-diagonal
-constraint entries need the general gather engine (a later slice).
+Problems with off-diagonal constraint entries (Lovász θ) take the general
+form of ``A_uu``: UUᵀ sampled at the aggregate upper-triangular pattern
+(``uv_values_uu``: one row gather of U at the pattern's rows and columns,
+through the hand-written ``gather_rows`` on the card), then reduced per
+constraint (``_reduce``). The entry-mask engine builds its carries with
+it. The general inner engine (``A_uv``, ``A_linesearch`` on such
+problems) is a later slice and raises.
 
-Output convention: a length-(m+1) vector whose slot ``m`` carries
-⟨C, ·⟩ (the objective) and slots 0..m-1 carry ⟨Aᵢ, ·⟩.
+Low-rank operands are tall-skinny matmuls UᵀB. Output convention: a
+length-(m+1) vector whose slot ``m`` carries ⟨C, ·⟩ (the objective) and
+slots 0..m-1 carry ⟨Aᵢ, ·⟩.
 """
 
 from __future__ import annotations
@@ -24,21 +30,50 @@ from __future__ import annotations
 import torch
 
 from .device import DeviceProblem
+from .gather import gather_rows
 from .spmm import spmm_C
 
 
-def _require_diagonal(dp: DeviceProblem):
-    if dp.C_dense is None and not dp.all_cons_diagonal:
+def is_general(dp: DeviceProblem) -> bool:
+    """Off-diagonal constraint entries with C not held dense: the
+    constraint values come from the aggregate pattern (``_reduce``)."""
+    return dp.C_dense is None and not dp.all_cons_diagonal
+
+
+def require_diagonal(dp: DeviceProblem, what: str):
+    """Raise for the general inner engine, which is not ported yet."""
+    if is_general(dp):
         raise NotImplementedError(
-            "constraints with off-diagonal entries need the general gather "
-            "engine, which is not ported yet (ROADMAP slice E)"
-        )
+            f"{what} with off-diagonal constraint entries needs the general "
+            "inner engine, which is not ported yet (ROADMAP slice E)")
 
 
 def _C_times(dp: DeviceProblem, X: torch.Tensor) -> torch.Tensor:
     """C@X (sparse part of C; low-rank C terms are added by the caller)."""
-    _require_diagonal(dp)
+    require_diagonal(dp, "C@X")
     return dp.C_dense @ X if dp.C_dense is not None else spmm_C(dp, X)
+
+
+def _reduce(dp: DeviceProblem, uv: torch.Tensor) -> torch.Tensor:
+    """uv values at the aggregate pattern (P_pad,) -> (m+1,) constraint
+    values, slot m the objective ⟨C, ·⟩ (wide constraints through their
+    dense P-aligned rows ``wide_val_two``)."""
+    obj = torch.dot(dp.c_val_two, uv)
+    g = uv[dp.con_pos.reshape(-1)]
+    cons = torch.sum(dp.con_val_two * g.reshape(dp.m, dp.con_width), dim=1)
+    if dp.wide_gids:
+        cons = cons.index_copy(
+            0, torch.tensor(dp.wide_gids, device=cons.device),
+            dp.wide_val_two @ uv)
+    return torch.cat([cons, obj[None]])
+
+
+def uv_values_uu(dp: DeviceProblem, U: torch.Tensor) -> torch.Tensor:
+    """(UUᵀ) sampled at the aggregate triu pattern -> (P_pad,): one row
+    gather of U at the pattern's rows, then its columns
+    (``DeviceProblem.uv_ids``)."""
+    Ug = gather_rows(U.contiguous(), dp.uv_ids)
+    return torch.sum(Ug[:dp.P_pad] * Ug[dp.P_pad:], dim=1)
 
 
 def _dense_cons(dp: DeviceProblem, rowvals: torch.Tensor) -> torch.Tensor:
@@ -93,12 +128,16 @@ def A_linesearch_cd(dp: DeviceProblem, R: torch.Tensor, D: torch.Tensor,
 
 
 def A_uu(dp: DeviceProblem, U: torch.Tensor) -> torch.Tensor:
-    """𝒜(UUᵀ) -> (m+1,), slot m = ⟨C, UUᵀ⟩ = ⟨U, CU⟩."""
+    """𝒜(UUᵀ) -> (m+1,), slot m = ⟨C, UUᵀ⟩ (= ⟨U, CU⟩ when every
+    constraint entry is diagonal)."""
+    if is_general(dp):
+        return _add_lowrank(_reduce(dp, uv_values_uu(dp, U)), dp, U, U)
     return A_uu_cx(dp, U, _C_times(dp, U))
 
 
 def A_uv(dp: DeviceProblem, U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     """𝒜((UVᵀ+VUᵀ)/2) -> (m+1,); ⟨C,(UVᵀ+VUᵀ)/2⟩ = ⟨U, CV⟩ (C symmetric)."""
+    require_diagonal(dp, "A_uv")
     vals = _fast_vals(dp, torch.sum(U * V, dim=1),
                       torch.sum(U * _C_times(dp, V)))
     return _add_lowrank(vals, dp, U, V)
@@ -108,4 +147,5 @@ def A_linesearch(dp: DeviceProblem, R: torch.Tensor, D: torch.Tensor):
     """(A_RD, A_DD) with A_RD = 𝒜(RDᵀ + DRᵀ) (the ×2-scaled quantity the
     line search uses) and A_DD = 𝒜(DDᵀ); ONE product CD serves both
     objective slots: 2⟨R, CD⟩ and ⟨D, CD⟩."""
+    require_diagonal(dp, "A_linesearch")
     return A_linesearch_cd(dp, R, D, _C_times(dp, D))

@@ -3,8 +3,11 @@
 Counterpart of the JAX package's ``ops/lanczos.py`` (reference: the
 randomized Lanczos of src/coreop.jl:461-514). The three-term recurrence
 runs on the tensors' device with the matvec S·v of ops/adjoint.apply_S
-(a matmul with dense C, one ELL SpMM with sparse C) and no host sync per
-step (breakdown is a mask, as in the JAX loop). The start
+(a matmul with dense C, one ELL SpMM with sparse C or off-diagonal
+constraint entries, S's pattern values assembled once per run), or, in
+entry mode, with S assembled densely once (``S_dense``,
+ops/entrymask.assemble_S_dense) and one matvec per step; no host sync
+per step (breakdown is a mask, as in the JAX loop). The start
 vector is drawn from the solve's ``torch.Generator`` (``lanczos_v0``) or
 passed in, so tests can hand both packages the same vector.
 
@@ -23,7 +26,7 @@ import math
 import numpy as np
 import torch
 
-from .adjoint import apply_S
+from .adjoint import apply_S, s_tri_for
 from .device import DeviceProblem
 
 
@@ -42,15 +45,26 @@ def lanczos_v0(dp: DeviceProblem, generator: torch.Generator,
     return v / torch.sqrt(torch.sum(v * v))
 
 
+def _matvec(dp: DeviceProblem, y_full, S_dense):
+    """v ↦ S·v: one matvec with the dense S of entry mode, else apply_S
+    (the general path's pattern values assembled here, once)."""
+    if S_dense is not None:
+        return lambda v: S_dense @ v
+    s_tri = s_tri_for(dp, y_full)
+    return lambda v: apply_S(dp, y_full, v, s_tri)
+
+
 def lanczos_alpha_beta_impl(dp: DeviceProblem, y_full, v0, q: int, *,
-                            q_max: int):
+                            q_max: int, S_dense=None):
     """Run min(q, q_max) Lanczos iterations on S(y_full) from the unit
     start vector ``v0`` (n_pad, 1); returns (alpha, beta, k_eff).
 
     alpha/beta are (q_max,) with valid prefix of length k_eff (a 0-dim
     tensor); β breakdown (|β| < √n·eps, reference: src/coreop.jl:494)
-    stops the recurrence."""
+    stops the recurrence. ``S_dense``: S assembled densely (entry
+    mode), each matvec one product."""
     dtype, dev = y_full.dtype, y_full.device
+    matvec = _matvec(dp, y_full, S_dense)
     v = v0
     tol = math.sqrt(dp.n) * torch.finfo(dtype).eps
     tiny = torch.finfo(dtype).tiny
@@ -62,7 +76,7 @@ def lanczos_alpha_beta_impl(dp: DeviceProblem, y_full, v0, q: int, *,
     done = torch.zeros((), dtype=torch.bool, device=dev)
     k_eff = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(min(int(q), q_max)):
-        Av = apply_S(dp, y_full, v)
+        Av = matvec(v)
         a_i = torch.sum(v * Av)
         Av = Av - a_i * v - beta_prev * v_prev
         b_i = torch.sqrt(torch.sum(Av * Av))
@@ -79,9 +93,10 @@ def lanczos_alpha_beta_impl(dp: DeviceProblem, y_full, v0, q: int, *,
 
 
 def lanczos_alpha_beta_reorth_impl(dp: DeviceProblem, y_full, v0, *,
-                                   q_max: int):
+                                   q_max: int, S_dense=None):
     """Lanczos with full reorthogonalization (high-precision path)."""
     dtype, dev = y_full.dtype, y_full.device
+    matvec = _matvec(dp, y_full, S_dense)
     v = v0
     tol = math.sqrt(dp.n) * torch.finfo(dtype).eps
     tiny = torch.finfo(dtype).tiny
@@ -95,7 +110,7 @@ def lanczos_alpha_beta_reorth_impl(dp: DeviceProblem, y_full, v0, *,
     k_eff = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(q_max):
         V[i] = torch.where(done, V[i], v[:, 0])
-        Av = apply_S(dp, y_full, v)
+        Av = matvec(v)
         a_i = torch.sum(v * Av)
         Av = Av - a_i * v - beta_prev * v_prev
         for _ in range(2):  # full reorthogonalization, twice

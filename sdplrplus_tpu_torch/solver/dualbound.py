@@ -9,7 +9,9 @@ src/coreop.jl:376-415) and the six DIMACS error metrics
 
 with y = [-min(λ_ub, λ - σv); 1] and S = Σ yᵢAᵢ + C, λ_min(S) from the
 scalar Lanczos path (ops/lanczos.py) or the block path
-(ops/blocklanczos.py).
+(ops/blocklanczos.py). In entry mode (Lovász θ) S is assembled densely
+once per bound (ops/entrymask.assemble_S_dense) and the least-squares
+multiplier is the masked-matrix CG of ``ls_dual_entry``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from ..ops.adjoint import apply_S, y_of
 from ..ops.blocklanczos import block_lanczos_min_eig
 from ..ops.device import DeviceProblem
+from ..ops.entrymask import assemble_S_dense, entry_enabled, ls_dual_entry
 from ..ops.lanczos import (
     bucket_q_max,
     lanczos_alpha_beta_impl,
@@ -146,6 +149,14 @@ def dual_obj(dp: DeviceProblem, lam, sigma, vio_raw, trace_bound: float,
     ``margin_target`` (λ units) and at least ``k_min`` steps (the
     caller's minimum Krylov depth). The block path is always
     residual-safeguarded."""
+    if R is not None and entry_enabled(dp):
+        y_ls_head = ls_dual_entry(dp, R)
+        return dual_obj(dp, -y_ls_head, torch.zeros_like(sigma),
+                        torch.zeros_like(vio_raw), trace_bound, iter_count,
+                        generator, highprecision=highprecision,
+                        safeguard=safeguard, v0=v0, block=block,
+                        margin_target=margin_target, R_seed=R,
+                        k_min=k_min)
     if R is not None and dp.ls_eligible:
         y_al = -torch.minimum(dp.lam_ub, lam - sigma * vio_raw[: dp.m])
         y_ls_head = ls_dual_head(dp, R, y_fallback=y_al)
@@ -158,10 +169,11 @@ def dual_obj(dp: DeviceProblem, lam, sigma, vio_raw, trace_bound: float,
                         k_min=k_min)
     dtype = lam.dtype
     y_full = y_of(dp, lam, sigma, vio_raw)
+    S_dense = assemble_S_dense(dp, y_full) if entry_enabled(dp) else None
     if block is not None and block[0] > 0:
         theta, margin, _ = block_lanczos_min_eig(
             dp, y_full, generator, R_seed, margin_target, int(k_min),
-            b=int(block[0]), k_max=int(block[1]))
+            b=int(block[0]), k_max=int(block[1]), S_dense=S_dense)
         min_eig = theta - margin
         yb = float(torch.dot(y_full[: dp.m], dp.b))
         return -yb + float(trace_bound) * min(min_eig, 0.0), min_eig, y_full
@@ -171,12 +183,12 @@ def dual_obj(dp: DeviceProblem, lam, sigma, vio_raw, trace_bound: float,
         q_max = bucket_q_max(min(max(100, 2 * lanczos_q(iter_count, dp.n)),
                                  dp.n))
         alpha, beta, k_eff = lanczos_alpha_beta_reorth_impl(
-            dp, y_full, v0, q_max=q_max)
+            dp, y_full, v0, q_max=q_max, S_dense=S_dense)
     else:
         q = lanczos_q(iter_count, dp.n)
         q_max = bucket_q_max(q)
         alpha, beta, k_eff = lanczos_alpha_beta_impl(
-            dp, y_full, v0, q, q_max=q_max)
+            dp, y_full, v0, q, q_max=q_max, S_dense=S_dense)
     if safeguard:
         if q_max > 1024:
             theta, margin = tridiag_min_eig_resid(alpha, beta, k_eff)
@@ -193,22 +205,25 @@ def dual_obj(dp: DeviceProblem, lam, sigma, vio_raw, trace_bound: float,
 def dimacs_errors(dp: DeviceProblem, R, lam, vio_raw, obj,
                   generator: torch.Generator) -> np.ndarray:
     """Six standard DIMACS error metrics (reference: src/coreop.jl:417-453).
-    err2 = err3 = 0 by construction (X = RRᵀ ⪰ 0, Z = C - 𝒜ᵀλ)."""
+    err2 = err3 = 0 by construction (X = RRᵀ ⪰ 0, Z = C - 𝒜ᵀλ). In entry
+    mode S is assembled densely once for the Lanczos run and S·R."""
     m = dp.m
     normb = float(torch.linalg.norm(dp.b))
     err1 = float(torch.linalg.norm(vio_raw[:m])) / (1.0 + normb)
     # S with y = [-λ; 1] (reference: copy2y_λ!, src/coreop.jl:238-246)
     y_full = torch.cat([-lam, torch.ones(1, dtype=lam.dtype,
                                          device=lam.device)])
+    S_dense = assemble_S_dense(dp, y_full) if entry_enabled(dp) else None
     q_max = bucket_q_max(min(100, dp.n))
     alpha, beta, k_eff = lanczos_alpha_beta_reorth_impl(
-        dp, y_full, lanczos_v0(dp, generator, lam.dtype), q_max=q_max)
+        dp, y_full, lanczos_v0(dp, generator, lam.dtype), q_max=q_max,
+        S_dense=S_dense)
     min_eig, margin = tridiag_min_eig_resid(alpha, beta, k_eff)
     # conservative: under-estimate λ_min so err4 is never optimistic
     err4 = max(0.0, -(min_eig - margin)) / (1.0 + dp.normC)
     bty = float(torch.dot(lam, dp.b))
     obj = float(obj)
     err5 = (obj - bty) / (1.0 + abs(obj) + abs(bty))
-    SR = apply_S(dp, y_full, R)
+    SR = S_dense @ R if S_dense is not None else apply_S(dp, y_full, R)
     err6 = float(torch.sum(R * SR)) / (1.0 + abs(obj) + abs(bty))
     return np.array([err1, 0.0, 0.0, err4, err5, err6])

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 
@@ -23,7 +22,8 @@ class LBFGSState:
     s_hist: torch.Tensor  # (k, n_pad, r)
     y_hist: torch.Tensor  # (k, n_pad, r)
     rho: torch.Tensor     # (k,)
-    head: int             # index of the most recent pair
+    head: int             # index of the most recent pair (a 0-dim
+    #                       int64 tensor inside the entry loop)
     sty: torch.Tensor     # (k, k) SᵀY Gram (maintained in both forms)
     yty: torch.Tensor     # (k, k) YᵀY Gram
 
@@ -74,9 +74,10 @@ def _direction_compact(state: LBFGSState, G: torch.Tensor,
     p = W @ g
     Sg, Yg = p[:k], p[k:]
 
-    # ring age: rank 0 = oldest ... k-1 = newest
-    rank = (np.arange(k) - state.head - 1) % k
-    perm = torch.as_tensor(np.argsort(rank, kind="stable"), device=G.device)
+    # ring slots oldest first: slot (head + 1 + i) % k has age rank i; the
+    # head may be a Python int or a 0-dim device tensor (solver/inner_entry
+    # keeps it on the device so a step has no host round trip)
+    perm = (torch.arange(k, device=G.device) + (state.head + 1)) % k
     empty = state.rho == 0.0
     mask2 = empty[:, None] | empty[None, :]
     zero = torch.zeros((), dtype=G.dtype, device=G.device)
@@ -100,10 +101,14 @@ def _direction_compact(state: LBFGSState, G: torch.Tensor,
 def lbfgs_push(state: LBFGSState, alpha, direction, G_old, G_new,
                k: int) -> LBFGSState:
     """Insert s = α·D, y = G_new - G_old, ρ = 1/⟨y, s⟩ at the next ring
-    slot and refresh row/column j of the SᵀY / YᵀY Grams."""
+    slot and refresh row/column j of the SᵀY / YᵀY Grams. The slot is
+    written through a (1,) index tensor, never a host read, so a tensor
+    head stays on the device; the returned head has the input's type."""
     if k == 0:
         return state
     j = (state.head + 1) % k
+    jj = (j.reshape(1) if torch.is_tensor(j)
+          else torch.full((1,), j, dtype=torch.int64, device=G_new.device))
     s = alpha * direction
     y = G_new - G_old
     sy = torch.stack([s.reshape(-1), y.reshape(-1)], dim=1)       # (nr, 2)
@@ -113,20 +118,15 @@ def lbfgs_push(state: LBFGSState, alpha, direction, G_old, G_new,
     M = sy.T @ sy
     ys = M[0, 1]
 
-    sty = state.sty.clone()
-    sty[j, :] = P[k:, 0]
-    sty[:, j] = P[:k, 1]
-    sty[j, j] = ys
-    yty = state.yty.clone()
-    yty[j, :] = P[k:, 1]
-    yty[:, j] = P[k:, 1]
-    yty[j, j] = M[1, 1]
+    sty = state.sty.index_copy(0, jj, P[k:, 0][None, :])
+    sty.index_copy_(1, jj, P[:k, 1][:, None])
+    sty.index_put_((jj, jj), ys.reshape(1))
+    yty = state.yty.index_copy(0, jj, P[k:, 1][None, :])
+    yty.index_copy_(1, jj, P[k:, 1][:, None])
+    yty.index_put_((jj, jj), M[1, 1].reshape(1))
 
-    s_hist = state.s_hist.clone()
-    y_hist = state.y_hist.clone()
-    rho = state.rho.clone()
-    s_hist[j] = s
-    y_hist[j] = y
-    rho[j] = 1.0 / ys
+    s_hist = state.s_hist.index_copy(0, jj, s[None])
+    y_hist = state.y_hist.index_copy(0, jj, y[None])
+    rho = state.rho.index_copy(0, jj, (1.0 / ys).reshape(1))
     return LBFGSState(s_hist=s_hist, y_hist=y_hist, rho=rho, head=j,
                       sty=sty, yty=yty)

@@ -9,9 +9,11 @@ the same exits and the same two-way body, since PyTorch runs eagerly:
     iteration (on the fast-diagonal engine with the carried CX = C@R), or
     one launch of a CUDA megakernel (ops/megakernel.mega_chunk: K1 for
     equality problems, K2 for the inequality families) that runs a whole
-    inner activation;
+    inner activation, or in entry mode (Lovász θ) one call of the
+    dense-mask loop (solver/inner_entry.entry_chunk) per activation;
   * the feasibility branch: vio ≤ cur_ptol → at strict boundaries the
-    Lanczos dual bound (least-squares and AL multipliers alternating),
+    Lanczos dual bound (least-squares and AL multipliers alternating; in
+    entry mode on S assembled densely once per bound),
     best-λ/gap tracking, dual ascent and tolerance tightening
     (reference: src/sdplr.jl:310-364);
   * the infeasible branch: σ·=σfac, tolerance reset (src/sdplr.jl:365-370);
@@ -33,6 +35,7 @@ import torch
 
 from ..ops.blocklanczos import block_lanczos_min_eig
 from ..ops.device import DeviceProblem, fast_diag_eligible
+from ..ops.entrymask import assemble_S_dense, entry_enabled, ls_dual_entry
 from ..ops.lanczos import (
     lanczos_alpha_beta_impl,
     lanczos_alpha_beta_reorth_impl,
@@ -42,6 +45,7 @@ from ..ops.lanczos import (
 )
 from .al import al_value_grad, al_value_grad_cx, capped_vio
 from .inner import InnerCarry, inner_step
+from .inner_entry import entry_chunk
 from .lbfgs import lbfgs_clear
 
 BIG = 1e20
@@ -104,6 +108,7 @@ def major_chunk(
     mega_r: int = 0,      # as one megakernel call per activation
     lanczos_v0=None,      # (n_pad, 1) start vector for every bound of
     #                       this call; None draws from carry.generator
+    entry_graphs=None,    # solver/inner_entry.EntryGraphs of the solve
 ):
     """Advance the solve by up to ``budget`` inner steps / ``major_budget``
     major boundaries. Returns (MajorCarry, vio_norm)."""
@@ -116,8 +121,10 @@ def major_chunk(
     logn = math.log(max(dp.n, 2))
     sigma_cap = f(2.0) ** 100
     # fast-diagonal engine (solver/inner.py use_cx): only for the torch
-    # inner_step engine; the megakernels carry CX = None
+    # inner_step engine; the megakernels and the entry engine carry
+    # CX = None (fast_diag_eligible is false in entry mode)
     use_cx = mega_spec is None and fast_diag_eligible(dp)
+    entry = entry_enabled(dp)
 
     def healthy(c: MajorCarry) -> bool:
         # stop on a numerically failed state (NaN L or σ overflow) instead
@@ -140,6 +147,18 @@ def major_chunk(
             )
             ic2.steps = c.ic.steps + ic2.steps
             return dataclasses.replace(c, ic=ic2)
+    elif entry:
+        # the dense-mask inner loop: one call runs a whole activation;
+        # the m-vector is converted only at this boundary
+        def inner_branch(c: MajorCarry) -> MajorCarry:
+            ic2, _ = entry_chunk(
+                dp, c.ic.R, c.ic.G, c.ic.vio_raw, c.ic.L_val,
+                c.ic.grad_norm, c.ic.lbfgs, c.lam, c.sigma, c.cur_gtol,
+                stag_tol, max(budget - c.ic.steps, 0), k=k,
+                gtol_relative=gtol_relative, ptol_relative=ptol_relative,
+                lbfgs_compact=lbfgs_compact, graphs=entry_graphs)
+            ic2.steps = c.ic.steps + ic2.steps
+            return dataclasses.replace(c, ic=ic2)
     else:
         def inner_branch(c: MajorCarry) -> MajorCarry:
             ic2 = inner_step(dp, c.ic, c.lam, c.sigma, stag_tol, k=k,
@@ -155,6 +174,8 @@ def major_chunk(
         applications (block steps on the block path)."""
         y_full = torch.cat([y_head, torch.ones(1, dtype=dtype, device=dev)])
         yb = torch.dot(y_full[:m], dp.b)
+        # entry mode: S assembled densely once, each matvec one product
+        S_dense = assemble_S_dense(dp, y_full) if entry else None
         if blk_b > 0:
             # block-Lanczos path: R-seeded start block, one b-lane operator
             # pass per step, early exit on the certified residual margin
@@ -165,21 +186,21 @@ def major_chunk(
                   / torch.clamp(trace_bound, min=1.0))
             theta, margin, k_used = block_lanczos_min_eig(
                 dp, y_full, c.generator, c.ic.R, float(mt), blk_k_min,
-                b=blk_b, k_max=blk_kmax)
+                b=blk_b, k_max=blk_kmax, S_dense=S_dense)
             min_eig = f(theta) - f(margin)
             return -yb + trace_bound * torch.clamp(min_eig, max=0.0), k_used
         v0 = lanczos_v0 if lanczos_v0 is not None else draw_lanczos_v0(
             dp, c.generator, dtype)
         if highprecision:
             alpha, beta, k_eff = lanczos_alpha_beta_reorth_impl(
-                dp, y_full, v0, q_max=q_max)
+                dp, y_full, v0, q_max=q_max, S_dense=S_dense)
         else:
             # q = 2⌈max(iter,100)^0.5·log n⌉ (reference: src/coreop.jl:402)
             it = float(max(base_iter + c.ic.steps, 100))
             q = int(min(max(2.0 * math.ceil(math.sqrt(it) * logn), 1),
                         min(q_max, dp.n)))
             alpha, beta, k_eff = lanczos_alpha_beta_impl(
-                dp, y_full, v0, q, q_max=q_max)
+                dp, y_full, v0, q, q_max=q_max, S_dense=S_dense)
         if dual_safeguard:
             theta, margin = tridiag_min_eig_device_certified(
                 alpha, beta, k_eff)
@@ -190,24 +211,33 @@ def major_chunk(
 
     def dual_bound(c: MajorCarry):
         """Dual value at the least-squares multiplier on LS-eligible
-        families, alternating with the AL ascent iterate across strict
-        boundaries (one Lanczos per boundary), or at the AL iterate."""
+        families and in entry mode (the masked-matrix CG multiplier),
+        alternating with the AL ascent iterate across strict boundaries
+        (one Lanczos per boundary), or at the AL iterate."""
         y_al = -torch.minimum(dp.lam_ub, c.lam - c.sigma * c.ic.vio_raw[:m])
-        if not dp.ls_eligible:
+        if not (entry or dp.ls_eligible):
             d_al, p_al = bound_for(c, y_al)
             return d_al, p_al, y_al
         from .dualbound import ls_dual_head
 
-        CR = c.ic.CX if use_cx else None
-        y = (ls_dual_head(dp, c.ic.R, CR, y_fallback=y_al)
-             if c.feas_count % 2 == 0 else y_al)
+        if c.feas_count % 2 != 0:
+            y = y_al
+        elif entry:
+            y = ls_dual_entry(dp, c.ic.R)
+        else:
+            CR = c.ic.CX if use_cx else None
+            y = ls_dual_head(dp, c.ic.R, CR, y_fallback=y_al)
         d, p = bound_for(c, y)
         return d, p, y
 
     def certified_obj(c: MajorCarry):
         """Objective of the termination gap: on identity-diagonal problems
         ⟨C, X̂⟩ at the exactly feasible projection R̂ᵢ = Rᵢ·√bᵢ/‖Rᵢ‖, so
-        the gap the solver stops on is the certificate it reports."""
+        the gap the solver stops on is the certificate it reports; in
+        entry mode the entry certificate (``entry_certified_obj``)."""
+        if dp.entry_trace_cert:
+            return entry_certified_obj(dp, c.ic.vio_raw, objtol,
+                                       objtol_relative)
         if not dp.diag_identity:
             return c.ic.vio_raw[m]
         from ..ops.spmm import spmm_C
@@ -313,6 +343,39 @@ def major_chunk(
                         and not carry.ic.stagnated)
         carry = inner_branch(carry) if inner_active else major_branch(carry)
     return carry, _vio_norm(dp, carry.ic.vio_raw, pscale)
+
+
+def entry_certified_obj(dp: DeviceProblem, vio_raw, objtol,
+                        objtol_relative: bool):
+    """The entry mode's termination objective (θ family,
+    ``dp.entry_trace_cert``): the linear-feasible value
+    ⟨C, X̂−E⟩ = s·obj − ⟨C, E⟩, where X̂ = s·RRᵀ meets the wide (trace)
+    constraint exactly (s = b_w/(b_w+v_w) ≥ 0 keeps it PSD) and E zeroes
+    the entry violations exactly; X̂−E meets every linear constraint and
+    is only ε-PSD (λ_min ≥ −‖E‖). The rigorous PSD repair mixes with the
+    feasible point X_I = c·I, charging t = δ/(δ + c); it is taken when its
+    overhead fits in half the objtol budget, and capped there otherwise,
+    so termination stays reachable while the ε-PSD undershoot is still
+    charged. The reference terminates on the raw objective
+    (src/sdplr.jl:334-357), which this never undercuts."""
+    dtype, dev = vio_raw.dtype, vio_raw.device
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+    gid_w = dp.extra_gids[0]
+    b_w = dp.b[gid_w]
+    denom_w = b_w + vio_raw[gid_w]
+    s = torch.where(denom_w > 0, b_w / denom_w, f(0.0))
+    ve = vio_raw[dp.entry_gids]
+    cE = s * torch.sum(dp.entry_csgn * ve)            # ⟨C, E⟩ exactly
+    c_mix = f(dp.entry_mix_c)
+    mix_obj = c_mix * f(dp.n * dp.trC_n)              # ⟨C, X_I⟩
+    lin = s * vio_raw[dp.m] - cE
+    delta = s * torch.sqrt(2.0 * torch.sum(ve * ve))
+    t_mix = delta / torch.clamp(delta + c_mix, min=torch.finfo(dtype).tiny)
+    mixed = (1.0 - t_mix) * lin + t_mix * mix_obj
+    budget = 0.5 * objtol * (torch.clamp(lin.abs(), min=1e-8)
+                             if objtol_relative else f(1.0))
+    val = torch.minimum(mixed, lin + budget)
+    return torch.where(denom_w > 0, val, mix_obj)
 
 
 def _fg(dp: DeviceProblem, R, lam, sigma, with_cx: bool,

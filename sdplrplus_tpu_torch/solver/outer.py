@@ -13,10 +13,13 @@ dense engine (C held dense: MaxCut, MinBisection, CutNorm at n_pad ≤
 2048) and the fast-diagonal engine (C kept sparse: MaxCut and its kin
 past n_pad 2048, μ-conductance, whose wide volume constraint keeps C out
 of dense mode), with equality constraints (exact line search) or
-inequalities (Armijo), and the scalar or block-Lanczos dual bound (block
-past n = 4096, when forced, or when the scalar schedule wants more than
-1024 steps). Other engines and options raise NotImplementedError naming
-the ROADMAP slice that ports them.
+inequalities (Armijo); and the single-entry equality families (Lovász θ)
+on the entry-mask engine (solver/inner_entry.py), which compile_problem
+picks for them at n_pad ≤ 8192, with θ's trace-normalized scaling
+conditioned first (``_maybe_rescale_entry``). The dual bound is the
+scalar or block Lanczos (block past n = 4096, when forced, or when the
+scalar schedule wants more than 1024 steps). Other engines and options
+raise NotImplementedError naming the ROADMAP slice that ports them.
 """
 
 from __future__ import annotations
@@ -32,9 +35,11 @@ from ..compile import compile_problem
 from ..config import SolverConfig, resolve_device, resolve_dtype
 from ..ops.blocklanczos import block_sizes
 from ..ops.device import DeviceProblem, fast_diag_eligible, to_device
+from ..ops.entrymask import entry_enabled
 from ..problem import SDPProblem
 from ..utils.printing import print_heading, print_intermediate
 from .dualbound import dimacs_errors, dual_obj
+from .inner_entry import EntryGraphs
 from .lbfgs import lbfgs_init
 from .rank import next_rank
 
@@ -44,6 +49,7 @@ ENGINE_KERNEL = "cuda-megakernel"     # K1 or K2 on the card
 ENGINE_PLAIN = "megakernel-plain"     # their plain versions (CPU tensors)
 ENGINE_TORCH = "dense-torch"          # the torch inner loop, dense C
 ENGINE_FAST = "fast-diag-torch"       # the torch inner loop, sparse C
+ENGINE_ENTRY = "entry-mask-torch"     # the dense-mask loop (Lovász θ)
 
 
 def _init_vars(prob, dp, r: int, config: SolverConfig, dtype,
@@ -106,13 +112,163 @@ def _stagnation_tol(config: SolverConfig, dtype) -> float:
     return tol
 
 
-def _feasible_obj(prob, dp, R_np: np.ndarray):
-    """⟨C, X̂⟩ for the feasibility-projected factor on identity-diagonal
-    problems (diag(X) = b, b > 0): R̂ᵢ = Rᵢ·√bᵢ/‖Rᵢ‖ makes X̂ = R̂R̂ᵀ
-    exactly feasible, so dual ≤ p* ≤ ⟨C, X̂⟩ is a two-sided certificate.
-    None when no closed-form projection applies."""
+def _entry_mix(dp, vio_raw):
+    """The entry certificate's pieces at raw violations ``vio_raw``, on
+    the host in float64: (lin, mixed, mix_obj), lin and mixed None when
+    the wide constraint leaves no PSD scaling (b_w + v_w ≤ 0). lin = s·obj − ⟨C, E⟩
+    is the linear-feasible value of X̂ − E (X̂ = s·RRᵀ meets the wide
+    constraint, E zeroes the entry violations); mixed charges its PSD
+    repair, the mix with X_I = c·I at t = δ/(δ + c), δ = ‖E‖_F."""
+    v = np.asarray(vio_raw, dtype=np.float64)
+    gid_w = int(dp.extra_gids[0])
+    b_w = float(dp.b[gid_w])
+    c_mix = float(dp.entry_mix_c)
+    mix_obj = c_mix * dp.n * float(dp.trC_n)
+    denom = b_w + v[gid_w]
+    if denom <= 0:
+        return None, None, mix_obj
+    s = b_w / denom
+    ve = v[dp.entry_gids.cpu().numpy()]
+    cE = s * float(np.sum(dp.entry_csgn.cpu().numpy().astype(np.float64)
+                          * ve))
+    lin = s * float(v[dp.m]) - cE
+    delta = s * float(np.sqrt(2.0 * np.sum(ve * ve)))
+    t_mix = delta / max(delta + c_mix, 1e-300)
+    return lin, (1.0 - t_mix) * lin + t_mix * mix_obj, mix_obj
+
+
+def _entry_term_obj(dp, vio_raw, objtol: float, objtol_relative: bool):
+    """Host mirror of the state machine's entry-mode termination
+    objective (solver/major.entry_certified_obj): the mixed certificate
+    when its PSD-repair overhead fits half the objtol budget, else the
+    linear-feasible value plus that half (the host-driven loop's, which
+    ``fused_outer=False`` will run; slice F)."""
+    lin, mixed, mix_obj = _entry_mix(dp, vio_raw)
+    if lin is None:
+        return mix_obj
+    budget = 0.5 * objtol * (max(abs(lin), 1e-8) if objtol_relative
+                             else 1.0)
+    return min(mixed, lin + budget)
+
+
+def _greedy_is_objective(prob, dp, R_np: np.ndarray):
+    """⟨C, χχᵀ⟩·b_w/Σ_S w for a greedy independent set S of the entry
+    pattern, vertices tried in decreasing ‖R_i‖²: a true feasible
+    objective for the θ family (entries are edges with b_e = 0, the wide
+    constraint holds by the scaling, χχᵀ ⪰ 0). The analog of the
+    reference's rounding callbacks (exps/test.jl:76-87) promoted to a
+    certificate. None when it does not apply."""
     from ..problem import SparseSym, SymLowRank
 
+    n = dp.n
+    adj = [[] for _ in range(n)]
+    for i, j in zip(dp.entry_rows.tolist(), dp.entry_cols.tolist()):
+        if i < n and j < n and i != j:
+            adj[i].append(j)
+            adj[j].append(i)
+    chosen = np.zeros(n, dtype=bool)
+    blocked = np.zeros(n, dtype=bool)
+    for v in np.argsort(-np.sum(R_np * R_np, axis=1)):
+        if blocked[v]:
+            continue
+        chosen[v] = True
+        for u in adj[v]:
+            blocked[u] = True
+        blocked[v] = True
+    S = np.nonzero(chosen)[0]
+    if S.size == 0:
+        return None
+    chi = np.zeros(n)
+    chi[S] = 1.0
+    # X̃ = (b_w / Σ_{i∈S} w_i)·χχᵀ meets the wide constraint exactly
+    b_w = float(dp.b[int(dp.extra_gids[0])])
+    wS = float(np.sum(dp.extra_wide_w[0, :n].cpu().numpy()[S]))
+    if wS <= 0:
+        return None
+    C = prob.C
+    if isinstance(C, SymLowRank):
+        Bc = C.B.T @ chi
+        val = float(np.sum(C.d * Bc * Bc))
+    elif isinstance(C, SparseSym):
+        val = float(np.sum(C.vals * chi[C.rows] * chi[C.cols]))
+    else:
+        return None
+    return val * b_w / wS
+
+
+ENTRY_EIG_MAX_N = 4096   # _entry_eig_cert's dense host eigenvalue, n ≤ this
+
+
+def _entry_eig_cert(prob, dp, R_np: np.ndarray):
+    """The entry mode's PSD-repaired mix at its tightest δ, built from the
+    factor on the host in float64. M = s·RRᵀ with the entry positions
+    zeroed meets every linear constraint exactly: s = b_w/Σᵢ wᵢ‖Rᵢ‖²
+    meets the wide one, and the entries are off-diagonal with b_e = 0
+    (the compile gate of ``entry_trace_cert``). (1 − t)·M + t·c·I is then
+    PSD for t = δ/(δ + c) once δ ≥ −λ_min(M); δ is −λ_min(M) from a
+    dense symmetric eigensolver plus 4·n·eps·‖M‖_F for its rounding; c·I
+    alone is taken where it is better (far from the optimum). The JAX
+    package's repair (``_entry_mix``) takes δ from the carried violations
+    as 2‖E‖_F, E = s·RRᵀ − M, a bound ‖E‖_F ≥ ‖E‖₂ ≥ −λ_min(M) that is
+    an order of magnitude looser at n ≈ 10³ (ROADMAP F8). None above
+    ``ENTRY_EIG_MAX_N`` or when no scaling s exists."""
+    import scipy.linalg
+
+    from ..problem import SparseSym, SymLowRank
+
+    n = dp.n
+    if n > ENTRY_EIG_MAX_N:
+        return None
+    R = np.asarray(R_np, dtype=np.float64)[:n]
+    w = dp.extra_wide_w[0, :n].detach().cpu().numpy().astype(np.float64)
+    tw = float(np.sum(w * np.sum(R * R, axis=1)))
+    if not (np.isfinite(tw) and tw > 0):
+        return None
+    M = (float(dp.b[int(dp.extra_gids[0])]) / tw) * (R @ R.T)
+    rows = dp.entry_rows.cpu().numpy()
+    cols = dp.entry_cols.cpu().numpy()
+    M[rows, cols] = 0.0
+    M[cols, rows] = 0.0
+    C = prob.C
+    if isinstance(C, SymLowRank):
+        lin = float(np.sum(C.d * np.sum(C.B * (M @ C.B), axis=0)))
+    elif isinstance(C, SparseSym):
+        lin = float(np.sum(C.vals * M[C.rows, C.cols]))
+    else:
+        return None
+    lam_min = float(scipy.linalg.eigh(M, eigvals_only=True,
+                                      subset_by_index=[0, 0])[0])
+    delta = (max(0.0, -lam_min)
+             + 4.0 * n * np.finfo(np.float64).eps * float(np.linalg.norm(M)))
+    c = float(dp.entry_mix_c)
+    t_mix = delta / (delta + c)
+    mix_obj = c * dp.n * float(dp.trC_n)      # ⟨C, c·I⟩, itself feasible
+    return min((1.0 - t_mix) * lin + t_mix * mix_obj, mix_obj)
+
+
+def _feasible_obj(prob, dp, R_np: np.ndarray, vio_raw=None):
+    """A feasible objective that certifies the gap from above.
+
+    Entry mode (θ family, ``dp.entry_trace_cert``): the better of the
+    PSD-repaired mix (``_entry_eig_cert`` up to n = ENTRY_EIG_MAX_N, else
+    the JAX package's ``_entry_mix``, loose at ptol = 1e-2 for n ≳ 10³)
+    and the greedy independent-set rounding, which is exactly feasible
+    and tight when the factor encodes the optimal support. The state
+    machine terminates on ``entry_certified_obj`` instead; this rigorous
+    value is what rel_duality_gap reports.
+
+    Identity-diagonal problems (diag(X) = b, b > 0): ⟨C, X̂⟩ for the
+    projection R̂ᵢ = Rᵢ·√bᵢ/‖Rᵢ‖, which makes X̂ = R̂R̂ᵀ exactly feasible,
+    so dual ≤ p* ≤ ⟨C, X̂⟩. None when no closed form applies."""
+    from ..problem import SparseSym, SymLowRank
+
+    if dp.entry_trace_cert and vio_raw is not None:
+        cert = _entry_eig_cert(prob, dp, R_np)
+        if cert is None:
+            lin, mixed, mix_obj = _entry_mix(dp, vio_raw)
+            cert = mix_obj if lin is None else mixed
+        rounded = _greedy_is_objective(prob, dp, R_np)
+        return cert if rounded is None else min(cert, rounded)
     if not dp.diag_identity:
         return None
     b = dp.b.detach().cpu().numpy().astype(np.float64)
@@ -155,6 +311,8 @@ def _engine_name(dp, use_mega: bool) -> str:
     """Which inner-loop engine served this solve (result provenance)."""
     if use_mega:
         return ENGINE_KERNEL if dp.device.type == "cuda" else ENGINE_PLAIN
+    if entry_enabled(dp):
+        return ENGINE_ENTRY
     return ENGINE_FAST if fast_diag_eligible(dp) else ENGINE_TORCH
 
 
@@ -184,8 +342,54 @@ def _not_ported(what: str, slice_: str):
         f"(ROADMAP {slice_})")
 
 
+def _maybe_rescale_entry(prob: SDPProblem, config: SolverConfig):
+    """Conditioning of trace-normalized entry families (Lovász θ: Tr X = 1,
+    edge entries 0): solve the equivalent problem in X' = f·X with
+    f = Σw/b_w (C' = C/f, b' = f·b; the objective value is unchanged), so
+    the entries of X' are O(1) instead of O(1/n). Unscaled, at n = 10³
+    the per-step AL progress falls below float32 resolution: the inner
+    loop stagnates within a few steps, every boundary takes the
+    infeasible branch and σ doubles to the overflow guard. Returns
+    (prob', config', f); f = 1.0 means no rescale."""
+    from ..problem import SparseSym, SymLowRank
+
+    b = np.asarray(prob.b, dtype=np.float64)
+    if prob.constraint_types is not None and np.any(prob.constraint_types):
+        return prob, config, 1.0
+    nz = np.nonzero(b)[0]
+    if len(nz) != 1:
+        return prob, config, 1.0
+    A_w = prob.As[int(nz[0])]
+    if not isinstance(A_w, SparseSym):
+        return prob, config, 1.0
+    if not ((A_w.rows == A_w.cols).all() and (A_w.vals >= 0).all()):
+        return prob, config, 1.0
+    b_w = float(b[nz[0]])
+    w_sum = float(np.sum(A_w.vals))
+    if b_w <= 0 or w_sum <= 0:
+        return prob, config, 1.0
+    f = w_sum / b_w
+    if f < 64.0:
+        return prob, config, 1.0
+    C = prob.C
+    if isinstance(C, SymLowRank):
+        C2 = SymLowRank(C.B, C.d / f)
+    elif isinstance(C, SparseSym):
+        C2 = SparseSym(C.rows, C.cols, C.vals / f, C.n)
+    else:
+        return prob, config, 1.0
+    prob2 = SDPProblem(C2, list(prob.As), b * f, prob.constraint_types)
+    tb = config.prior_trace_bound
+    cfg2 = config.copy_with(
+        prior_trace_bound=tb * f if np.isfinite(tb) else tb)
+    return prob2, cfg2, f
+
+
 def solve(prob: SDPProblem, r: int, config: SolverConfig) -> dict:
-    """Solve ``prob`` at starting rank ``r`` on ``config.device``."""
+    """Solve ``prob`` at starting rank ``r`` on ``config.device``. A
+    trace-normalized entry family is solved in the rescaled variable
+    X' = f·X (``_maybe_rescale_entry``) and its result mapped back:
+    R = R'/√f, multipliers y = f·y', ``entry_rescale_f`` = f."""
     if int(config.devices) > 1:
         _not_ported("multi-device solving (devices > 1)", "slice G")
     if config.profile_dir is not None:
@@ -200,14 +404,13 @@ def solve(prob: SDPProblem, r: int, config: SolverConfig) -> dict:
     if config.printlevel > 0:
         print_heading(True)
 
+    prob, config, rescale_f = _maybe_rescale_entry(prob, config)
     t_pre = time.time()
     cp = compile_problem(prob, dense=config.dense_mode,
                          entry=config.entry_mode)
-    if cp.ew_c2 is not None:
-        _not_ported("the Lovász-θ entry-mask engine", "slice D")
-    if cp.C_dense is None and not cp.all_cons_diagonal:
-        _not_ported("the general gather engine (off-diagonal constraint "
-                    "entries)", "slice E")
+    if cp.ew_c2 is None and cp.C_dense is None and not cp.all_cons_diagonal:
+        _not_ported("the general inner engine (off-diagonal constraint "
+                    "entries outside entry mode)", "slice E")
     dp = to_device(cp, dtype, device)
     preprocess_time = time.time() - t_pre
 
@@ -215,6 +418,16 @@ def solve(prob: SDPProblem, r: int, config: SolverConfig) -> dict:
     result["preprocess_time"] = preprocess_time
     result["totaltime"] += preprocess_time
     result["devices"] = 1
+    if rescale_f != 1.0:
+        # back to the user's scale: X = X'/f, so R = R'/√f; S = f·S', so
+        # y = f·y'; objective and dual values and relative norms are
+        # unchanged by construction
+        sf = float(np.sqrt(rescale_f))
+        for key in ("R", "Rt", "R0", "Rt0"):
+            result[key] = np.asarray(result[key]) / sf
+        for key in ("lambda", "lambda_last", "lambda0"):
+            result[key] = np.asarray(result[key]) * rescale_f
+        result["entry_rescale_f"] = rescale_f
     if config.printlevel > 0:
         print_heading(False)
     return result
@@ -395,6 +608,7 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
     POLISH_BUDGET = 1500       # inner steps a polish may spend
     final_polish = False       # permanent stagnation-off at the ladder end
     timed_out = False
+    entry_graphs = EntryGraphs()   # the entry step's CUDA graph, this solve
     vio_norm = float("inf")
 
     # adaptive per-call step budget (config.dispatch_target_s); small
@@ -450,7 +664,7 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
             lbfgs_compact=config.lbfgs_impl == "compact",
             blk_b=blk[0], blk_kmax=blk[1],
             blk_margin_frac=blk_margin_frac, blk_k_min=blk_k_min,
-            **mega_kwargs(r),
+            entry_graphs=entry_graphs, **mega_kwargs(r),
         )
         new_steps = carry.ic.steps
         new_majors = carry.majoriters
@@ -595,8 +809,9 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
     # dual-time attribution from the measured operator-pass count
     # (outer.py:1013-1049): on the gather-bound fast-diagonal engine an
     # inner iteration is one SpMM, as is a Krylov pass of any lane count;
-    # on the matmul-bound engines (dense, megakernels) an inner iteration
-    # costs ~3·r units and a Krylov pass its lane count (b or 1)
+    # on the matmul-bound engines (dense, megakernels, entry-mask) an
+    # inner iteration costs ~3·r units and a Krylov pass its lane count
+    # (b or 1)
     dual_time = 0.0
     total_steps = base_total + carry.ic.steps
     dual_passes = carry.dual_passes + extra_dual_passes
@@ -620,7 +835,7 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
 
     obj = float(vio_raw[m])
     R_np = R[:n].cpu().numpy().astype(np.float64)
-    obj_feas = _feasible_obj(prob, dp, R_np)
+    obj_feas = _feasible_obj(prob, dp, R_np, vio_raw.cpu().numpy())
     final_gap = _final_gap(obj if obj_feas is None else obj_feas,
                            max_dual_f, feas)
     return {

@@ -396,3 +396,111 @@ def test_gather_gives_nan_for_an_index_outside_x(h100):
     gl = ga.gather_lanes(X[:2].contiguous(), li.cuda())
     assert gl[0, 0] == X[0, 0] and gl[1, 0] == X[1, 9]
     assert torch.isnan(gl[0, 1]) and torch.isnan(gl[1, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["minimum_bisection", "maxcut"])
+def test_k1_within_rounding_of_the_extended_evaluation(h100, family):
+    """K1 on the card and its plain version on the CPU, in float64 at
+    r = 64, k = 16, steps 0..5, each against the same loop evaluated in
+    longdouble on the host (ops/megakernel_ext.py): every entry of G
+    within a few units (8) of its float64 rounding scale, R and the
+    violations to 1e-9. At MinBisection's step 2 the two float64 values
+    differ by up to 3.3e-9 in G (|G| ≈ 120) and each lies about that far
+    from the extended one: the coupling 1ᵀX1 builds G from terms five
+    decades larger that cancel, and both orders of summation round."""
+    from sdplrplus_tpu_torch.ops import megakernel_ext as mx
+
+    for steps in range(6):
+        spec, args, _, _ = mx.k1_case("cuda", family, steps)
+        ext = mx.mega_chunk_ext(spec, *args)
+        before = mk.K1.launches
+        out = mk.mega_kernel(spec, *args)
+        torch.cuda.synchronize()
+        assert mk.K1.launches == before + 1
+        spec_c, args_c, _, _ = mx.k1_case("cpu", family, steps)
+        for rep in (mx.rounding_report(ext, out),
+                    mx.rounding_report(ext, mk.mega_chunk_plain(spec_c,
+                                                                *args_c))):
+            assert rep["dG_in_scale_units"] <= 8.0, (steps, rep)
+            assert rep["max_dR"] <= 1e-9 and rep["max_dvio"] <= 1e-9, rep
+
+
+@pytest.mark.cuda
+def test_theta_solve_on_the_card_matches_the_cpu(h100):
+    """A small Lovász-θ solve (C₇₂², θ = 24, trace-rescaled) on the
+    entry-mask engine on the card and on the CPU, float64: both meet the
+    tolerances, the objectives agree to 1e-3 and the card's carries ran
+    their row gathers through gather_rows, with no K1 or K2 launch."""
+    from sdplrplus_tpu_torch.solver.outer import ENGINE_ENTRY
+
+    C, As, b = problems.lovasz_theta(problems.synthetic_cycle_power(72, 2))
+    kw = dict(ptol=1e-2, objtol=1e-2, prior_trace_bound=1.0,
+              dtype="float64", seed=0, printlevel=0, maxtime=120.0)
+    k1, k2, rows = mk.K1.launches, mk.K2.launches, ga.ROWS.launches
+    res = sdplr(C, As, b, 4, **kw)
+    assert res["inner_engine"] == ENGINE_ENTRY
+    assert mk.K1.launches == k1 and mk.K2.launches == k2
+    assert ga.ROWS.launches > rows
+    ref = sdplr(C, As, b, 4, device="cpu", **kw)
+    for r in (res, ref):
+        assert r["primal_vio"] <= 1e-2 and r["rel_duality_gap"] <= 1e-2
+        assert r["entry_rescale_f"] == 72.0
+    assert abs(res["obj"] - ref["obj"]) <= 1e-3 * abs(ref["obj"])
+
+
+@pytest.mark.cuda
+def test_entry_step_graph_matches_the_eager_step(h100):
+    """The entry-mode inner step replayed as a CUDA graph against the same
+    step run eagerly, on the card in float64 (θ of a 60-node random graph,
+    r = 6, k = 4): 25 steps with no early exit, then a second chunk through
+    the same captured graph with new multipliers and σ, then a chunk that
+    stops on its gradient tolerance. R, G, the violations, L, the ring and
+    its Grams agree to 1e-10 (relative to each one's largest entry), and
+    the step counts and ring heads are equal."""
+    from sdplrplus_tpu_torch.solver import inner_entry
+    from sdplrplus_tpu_torch.solver.al import al_value_grad
+
+    A = problems.make_random_graph(60, 0.5, seed=2)
+    C, As, b = problems.lovasz_theta(A)
+    dp = to_device(compile_problem(SDPProblem(C, As, np.asarray(b, float),
+                                              None)), torch.float64, "cuda")
+    assert dp.ew_c2 is not None
+    rng = np.random.default_rng(0)
+    t = lambda x: torch.tensor(x, dtype=torch.float64, device="cuda")
+    r, k = 6, 4
+    R0 = np.zeros((dp.n_pad, r))
+    R0[:60] = rng.uniform(-1, 1, (60, r)) / np.sqrt(60 * r)
+    R = t(R0)
+
+    graphs = inner_entry.EntryGraphs()
+
+    def both(lam, sigma, gtol, steps):
+        L, vio, G, _, gn, _ = al_value_grad(dp, R, lam, sigma, True, True)
+        out = []
+        for graph in (True, False):
+            out.append(inner_entry.entry_chunk(
+                dp, R, G, vio, L, gn, lbfgs_init(k, dp.n_pad, r,
+                                                 torch.float64, "cuda"),
+                lam, sigma, gtol, float("-inf"), steps, k=k,
+                gtol_relative=True, ptol_relative=True, graph=graph,
+                graphs=graphs))
+        (cg, vg), (ce, ve) = out
+        assert cg.steps == ce.steps and cg.lbfgs.head == ce.lbfgs.head
+        for a, e in ((cg.R, ce.R), (cg.G, ce.G), (cg.vio_raw, ce.vio_raw),
+                     (cg.L_val, ce.L_val), (cg.lbfgs.s_hist, ce.lbfgs.s_hist),
+                     (cg.lbfgs.y_hist, ce.lbfgs.y_hist),
+                     (cg.lbfgs.sty, ce.lbfgs.sty), (vg, ve)):
+            assert float((a - e).abs().max()) <= 1e-10 * float(
+                e.abs().max().clamp(min=1e-300)), (a, e)
+        return cg
+
+    c1 = both(t(np.zeros(dp.m)), t(10.0), -1.0, 25)
+    assert c1.steps == 25
+    graph1 = graphs._g
+    c2 = both(t(0.1 * rng.standard_normal(dp.m)), t(40.0), -1.0, 25)
+    assert graphs._g is graph1 and c2.steps == 25
+    # the first chunk's path again, stopping where its gradient first falls
+    # to 1.0001 × the norm it ended at
+    c3 = both(t(np.zeros(dp.m)), t(10.0), 1.0001 * float(c1.grad_norm), 500)
+    assert 0 < c3.steps <= 25

@@ -1,9 +1,10 @@
 """The port's slice end to end on the CPU, against the JAX package.
 
-K₂ MaxCut and K₂ MinBisection reach their analytic optima at the
-tolerances of tests/test_e2e.py; a seeded n = 40 MaxCut lands within
-1e-3 of the JAX package's objective on the same input and seed, through
-both inner engines (the torch loop and K1's plain version), and the
+K₂ MaxCut, K₂ MinBisection and CutNorm on the 2×2 all-ones matrix reach
+their analytic optima at the tolerances of tests/test_e2e.py; a seeded
+n = 40 MaxCut lands within 1e-3 of the JAX package's objective on the
+same input and seed, through both inner engines (the torch loop and K1's
+plain version), as do seeded CutNorm and MinBisection solves, and the
 result carries every key the JAX package reports.
 """
 
@@ -14,9 +15,11 @@ import scipy.sparse as sp
 from sdplrplus_tpu import sdplr as j_sdplr
 from sdplrplus_tpu.models import make_random_graph
 from sdplrplus_tpu.models import maxcut as j_maxcut
+from sdplrplus_tpu.models import problems as j_models
 
 from sdplrplus_tpu_torch import sdplr
-from sdplrplus_tpu_torch.models import maxcut, minimum_bisection
+from sdplrplus_tpu_torch.models import cutnorm, maxcut, minimum_bisection
+from sdplrplus_tpu_torch.models import problems as t_models
 from sdplrplus_tpu_torch.solver.outer import (
     ENGINE_PLAIN, ENGINE_TORCH,
 )
@@ -64,6 +67,38 @@ def test_seeded_maxcut_matches_the_jax_package(impl):
     assert abs(res["obj"] - ref["obj"]) / abs(ref["obj"]) < 1e-3
     assert res["inner_engine"] == (ENGINE_PLAIN if impl == "mega"
                                    else ENGINE_TORCH)
+    assert set(ref) <= set(res)
+
+
+def test_cutnorm_all_ones_2x2():
+    """CutNorm on the 2×2 all-ones matrix: ⟨-C, X⟩ = 4 at X = 11ᵀ
+    (tests/test_e2e.py:92), to 1e-3."""
+    C, As, b = cutnorm(sp.csr_matrix(np.ones((2, 2))))
+    res = sdplr(C, As, b, 2, fprec=0.0, objtol=1e-5, ptol=1e-6,
+                prior_trace_bound=4.0, printlevel=0, maxmajoriter=200,
+                device="cpu", dtype="float64")
+    assert abs(-res["obj"] - 4.0) < 1e-3
+
+
+@pytest.mark.parametrize("family,n", [("cutnorm", 20),
+                                      ("minimum_bisection", 40)])
+def test_seeded_solve_matches_the_jax_package(family, n):
+    """Seeded CutNorm (the bipartite lift of an n×n matrix, N = 2n) and
+    MinBisection solves against sdplrplus_tpu.sdplr on the same input and
+    seed, as the MaxCut one above: both meet ptol and objtol 1e-2 and the
+    objectives agree to 1e-3."""
+    A = make_random_graph(n, 0.3, seed=4)
+    Cj, Asj, bj = getattr(j_models, family)(A)
+    N = len(bj)
+    common = dict(ptol=1e-2, objtol=1e-2, prior_trace_bound=float(N),
+                  printlevel=0, seed=0, dtype="float64")
+    ref = j_sdplr(Cj, Asj, bj, 4, **common)
+    C, As, b = getattr(t_models, family)(A)
+    res = sdplr(C, As, b, 4, device="cpu", **common)
+    for r in (ref, res):
+        assert r["primal_vio"] <= 1e-2
+        assert r["rel_duality_gap"] <= 1e-2
+    assert abs(res["obj"] - ref["obj"]) / abs(ref["obj"]) < 1e-3
     assert set(ref) <= set(res)
 
 

@@ -336,3 +336,23 @@ def test_lovasz_theta_is_not_eligible():
     dp = t_to_device(cp, torch.float32, "cpu")
     assert not mk.megakernel_eligible(dp, 3, 4, False, torch.float32)
 
+
+
+@pytest.mark.parametrize("family", ["minimum_bisection", "maxcut"])
+def test_plain_version_within_rounding_of_the_extended_evaluation(family):
+    """K1's loop in float64 (the plain version) against the same loop in
+    longdouble on the host (ops/megakernel_ext.py), at r = 64, k = 16
+    (the card test's hardest shape), steps 0..5: every entry of G within
+    a few units (8) of its float64 rounding scale eps·G_scale (the
+    worst-case bound of a length-n sum is about n/2 such units, 128 here;
+    MaxCut's first gradient measures 3.1), and R and the violations to
+    1e-9. The card test holds K1 to the same."""
+    from sdplrplus_tpu_torch.ops import megakernel_ext as mx
+
+    for steps in range(6):
+        spec, args, _, _ = mx.k1_case("cpu", family, steps)
+        ext = mx.mega_chunk_ext(spec, *args)
+        assert len(ext["alphas"]) == steps
+        rep = mx.rounding_report(ext, mk.mega_chunk_plain(spec, *args))
+        assert rep["dG_in_scale_units"] <= 8.0, (steps, rep)
+        assert rep["max_dR"] <= 1e-9 and rep["max_dvio"] <= 1e-9, rep
