@@ -118,7 +118,34 @@ from the sources in the checkout and runs these phases, one line each:
               torch.profiler (ms per iteration, device busy share, top
               kernels);
  13. theta-cycle  θ of the cycle power C_800^7, exactly 100: −obj within
-              1e-2 of it, the gap reported, not gated.
+              1e-2 of it, the gap reported, not gated;
+ 14. general  the general engine at full width: θ of the cycle power
+              C_10000^9 (90,000 edges, θ = 1000 exactly; m 90,001, n_pad
+              10,112 > 8192, so off-diagonal constraints outside entry
+              mode): 20 inner steps in float64 on the card and on the CPU
+              from one seeded start (R, the violations and G to 1e-9 of
+              each one's largest entry); a float32 sdplr(...) solve (r₀ =
+              10, ptol = objtol = 1e-2, trace bound 1, seed 0, maxtime 45
+              s; the general path does not converge θ, ROADMAP F6) with
+              every launch count set to 0 just before and read just after:
+              it must run general-torch with no K1 or K2 launch, report
+              a pinfeas within 1e-3 (relative) of 𝒜(RRᵀ) − b recomputed in
+              float64 on the host from the returned R, certify no bound
+              above −1000·(1 − 1e-4), and launch gather_rows exactly
+              2·iterations + 2·carry builds + Lanczos passes times (the
+              [R|D] gather and the gradient's SpMM per iteration, A_uu and
+              apply_S per carry build, one SpMM per block step); the
+              general inner loop at the final state under torch.profiler;
+              θ(C₅) = √5 and a 10-node θ with entry_mode=False against its
+              entry-mode objective, both to 1e-3;
+ 15. entry-points  the G1-shaped MaxCut of phase 4 through the host-driven
+              loop (fused_outer=False) on K1: pinfeas and gap ≤ 1e-2,
+              within 1e-2 of the JAX package's objective, and in float64
+              the fused driver's iterations and major iterations; the same
+              solve with checkpoint_path, the file loaded and a warm start
+              from it (pinfeas ≤ 1e-2 in no more iterations); solve_model
+              on a dense model of K₂ MaxCut (obj = −1 to 1e-6); profile_dir
+              writing one trace file.
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -182,6 +209,8 @@ JAX_THETA_G1_GAP = 0.07283967199981604
 THETA_MAXTIME = 240.0        # phase 12's solve, polish and reseeds included
 THETA_CYCLE_N = 800          # phase 13: C_n^7, theta = n/8
 THETA_CYCLE_MAXTIME = 90.0
+GENERAL_N, GENERAL_K = 10000, 9   # phase 14: C_n^k, theta = n/(k+1) = 1000
+GENERAL_MAXTIME = 45.0
 
 PEAK_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,       # non-tensor FP32
@@ -523,7 +552,313 @@ def theta_cycle_phase(n, maxtime, zero_counts, dev="cuda"):
     return res
 
 
+def general_phase(n, k, maxtime, zero_counts, smi, dev="cuda",
+                  entry_mode=None):
+    """Phase 14: Lovász θ of the cycle power C_n^k (θ = n/(k+1) exactly)
+    on the general engine (off-diagonal constraint entries outside entry
+    mode; compile_problem picks it for n_pad > 8192), in four parts:
+    (a) 20 inner steps in float64 from one seeded start on the card and on
+    the CPU; (b) a float32 solve (r₀ = 10, ptol = objtol = 1e-2, trace
+    bound 1, seed 0, ``maxtime``) with every launch count set to 0 just
+    before and read just after, checked on the host in float64 and for
+    its gather_rows launches against the count the code implies; (c) the
+    general inner loop at the solve's final state under torch.profiler;
+    (d) two small general solves that converge. ``entry_mode=False``
+    forces the general engine at small n (the CPU rehearsal). Returns the
+    solve's result dict."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from sdplrplus_tpu_torch import sdplr
+    from sdplrplus_tpu_torch.compile import compile_problem
+    from sdplrplus_tpu_torch.config import SolverConfig
+    from sdplrplus_tpu_torch.models import (
+        lovasz_theta, make_random_graph, synthetic_cycle_power,
+    )
+    from sdplrplus_tpu_torch.ops import gather as ga
+    from sdplrplus_tpu_torch.ops import megakernel as mk
+    from sdplrplus_tpu_torch.ops.device import to_device
+    from sdplrplus_tpu_torch.problem import SDPProblem
+    from sdplrplus_tpu_torch.solver import dualbound as db_mod
+    from sdplrplus_tpu_torch.solver import major as major_mod
+    from sdplrplus_tpu_torch.solver.al import al_value_grad
+    from sdplrplus_tpu_torch.solver.inner import inner_chunk
+    from sdplrplus_tpu_torch.solver.lbfgs import lbfgs_init
+    from sdplrplus_tpu_torch.solver.outer import (
+        ENGINE_ENTRY, ENGINE_GENERAL, _maybe_rescale_entry,
+    )
+
+    A = synthetic_cycle_power(n, k)
+    C, As, b = lovasz_theta(A)
+    theta = n / (k + 1.0)
+    prob, _, f = _maybe_rescale_entry(
+        SDPProblem(C, As, np.asarray(b, np.float64), None),
+        SolverConfig(prior_trace_bound=1.0))
+    t0 = time.time()
+    cp = compile_problem(prob, entry=entry_mode)
+    compile_s = time.time() - t0
+    assert cp.ew_c2 is None and cp.C_dense is None \
+        and not cp.all_cons_diagonal, "not the general engine"
+
+    # (a) the card against the CPU, float64, 20 steps of the general inner
+    # loop (exact line search, stagnation test off, no gtol exit)
+    rng = np.random.default_rng(0)
+    R0 = np.zeros((cp.n_pad, RANK))
+    R0[:n] = rng.uniform(-1.0, 1.0, (n, RANK))
+    outs = {}
+    for d in (dev, "cpu"):
+        dp = to_device(cp, torch.float64, d)
+        t = lambda x: torch.tensor(x, dtype=torch.float64, device=d)
+        lam = torch.zeros(dp.m, dtype=torch.float64, device=d)
+        L0, vio0, G0, y0, gn0, _ = al_value_grad(dp, t(R0), lam, t(2.0),
+                                                 True, True)
+        c, _ = inner_chunk(dp, t(R0), G0, y0, vio0, L0, gn0,
+                           lbfgs_init(K, dp.n_pad, RANK, torch.float64, d),
+                           lam, t(2.0), -1.0, float("-inf"), 20, k=K,
+                           use_armijo=False, gtol_relative=True,
+                           ptol_relative=True)
+        assert c.steps == 20, c.steps
+        outs[d] = c
+    steps_err = {}
+    for name in ("R", "vio_raw", "G"):
+        ref = getattr(outs["cpu"], name)
+        steps_err[name] = float((getattr(outs[dev], name).cpu() - ref)
+                                .abs().max() / ref.abs().max())
+    assert max(steps_err.values()) <= 1e-9, steps_err
+
+    # (b) the float32 solve; gather_rows launches per solve from the code:
+    # two per inner iteration (the [R|D] gather of A_linesearch, the SpMM
+    # of the gradient's apply_S), two per carry build (fg!: the general
+    # A_uu and apply_S) and one per Lanczos pass (block past n = 4096:
+    # one apply_S per block step)
+    fg_calls, passes = [0], [0]
+    real_fg = major_mod._fg
+    real_blk = major_mod.block_lanczos_min_eig
+
+    def counted_fg(*a, **kw):
+        fg_calls[0] += 1
+        return real_fg(*a, **kw)
+
+    def counted_blk(*a, **kw):
+        out = real_blk(*a, **kw)
+        passes[0] += int(out[2])
+        return out
+
+    major_mod._fg = counted_fg
+    major_mod.block_lanczos_min_eig = db_mod.block_lanczos_min_eig = \
+        counted_blk
+    zero_counts()
+    t0 = time.time()
+    try:
+        res = sdplr(C, As, b, RANK, ptol=1e-2, objtol=1e-2,
+                    prior_trace_bound=1.0, dtype="float32", seed=0,
+                    printlevel=0, maxtime=maxtime, device=dev,
+                    entry_mode=entry_mode)
+        torch.cuda.synchronize()
+    finally:
+        major_mod._fg = real_fg
+        major_mod.block_lanczos_min_eig = db_mod.block_lanczos_min_eig = \
+            real_blk
+    solve_s = time.time() - t0
+    launches = {kk.name: kk.launches for kk in (mk.K1, mk.K2) + ga.KERNELS}
+    derived = 2 * res["iter"] + 2 * fg_calls[0] + passes[0]
+    # the violations 𝒜(RRᵀ) − b of the returned factor, in float64 on the
+    # host, in the user's scale (ptol relative: over ‖b‖)
+    R = np.asarray(res["R"], np.float64)
+    rows = np.concatenate([A_.rows for A_ in As])
+    cols = np.concatenate([A_.cols for A_ in As])
+    vals = np.concatenate([A_.vals for A_ in As])
+    cid = np.repeat(np.arange(len(As)), [len(A_.vals) for A_ in As])
+    av = np.bincount(cid, vals * np.sum(R[rows] * R[cols], axis=1),
+                     minlength=len(As))
+    pinf64 = float(np.linalg.norm(av - b) / np.linalg.norm(b))
+    pinf = res["primal_vio"]
+    bound_lim = -theta * (1.0 - 1e-4)
+    obj_rel = abs(-res["obj"] - theta) / theta
+    say("general", f"Lovasz theta of C_{n}^{k} ({A.nnz // 2} edges, "
+        f"theta = {theta:g} exactly; m {cp.m}, n_pad {cp.n_pad}, P_pad "
+        f"{cp.P_pad}, compiled in {compile_s:.1f} s): (a) 20 inner steps "
+        f"in float64 on {dev} against the CPU: max |diff| / max |entry| "
+        f"{json.dumps(steps_err)}; (b) float32 solve: engine "
+        f"{res['inner_engine']}, entry_rescale_f "
+        f"{res.get('entry_rescale_f')}, solve {solve_s:.3f} s, iterations "
+        f"{res['iter']} ({1e3 * solve_s / max(res['iter'], 1):.3f} ms "
+        f"each), majors {res['majoriter']}, rank {res['r']}, timed out "
+        f"{res['timed_out']}, obj {res['obj']!r} (|-obj - theta|/theta "
+        f"{obj_rel:.3e}), pinfeas {pinf:.4e} (float64 from the returned R "
+        f"on the host: {pinf64:.4e}), best certified bound "
+        f"{res['max_dual_value']!r} (limit {bound_lim!r}), gap "
+        f"{res['rel_duality_gap']:.4e}, dual bounds "
+        f"{res['dual_bounds_computed']} (final rank), block passes "
+        f"{passes[0]}; launches {launches}: gather_rows {launches['gather_rows']}"
+        f" = 2 x {res['iter']} iterations + 2 x {fg_calls[0]} carry builds"
+        f" + {passes[0]} Lanczos passes = {derived}; nvidia-smi: {smi}")
+    assert res["inner_engine"] == ENGINE_GENERAL, res["inner_engine"]
+    assert res["entry_rescale_f"] == f
+    assert launches["K1"] == launches["K2"] == 0, launches
+    assert launches["gather_rows"] == derived, (launches, derived)
+    assert np.isfinite(res["obj"]) and np.all(np.isfinite(R))
+    assert R.shape == (n, res["r"])
+    assert abs(pinf - pinf64) <= 1e-3 * pinf64, (pinf, pinf64)
+    assert res["max_dual_value"] <= bound_lim, res["max_dual_value"]
+
+    # (c) where an iteration goes: the general loop at the final state, on
+    # the rescaled problem the solver ran
+    dp = to_device(cp, torch.float32, dev)
+    r = res["r"]
+    Rf = torch.zeros((dp.n_pad, r), device=dev)
+    Rf[:n] = torch.tensor(R * np.sqrt(f), dtype=torch.float32, device=dev)
+    lam = torch.tensor(res["lambda_last"] / f, dtype=torch.float32,
+                       device=dev)
+    sigma = torch.tensor(res["sigma"], dtype=torch.float32, device=dev)
+    L0, vio0, G0, y0, gn0, _ = al_value_grad(dp, Rf, lam, sigma, True, True)
+
+    def steps_of(steps):
+        c, _ = inner_chunk(dp, Rf, G0, y0, vio0, L0, gn0,
+                           lbfgs_init(K, dp.n_pad, r, torch.float32, dev),
+                           lam, sigma, -1.0, float("-inf"), steps, k=K,
+                           use_armijo=False, gtol_relative=True,
+                           ptol_relative=True)
+        assert c.steps == steps
+        return c
+
+    nsteps = 20
+    step_ms, wall_ms, dev_ms, top = device_profile(steps_of, nsteps)
+    say("profile", f"theta C_{n}^{k} general inner loop at rank {r} (n_pad "
+        f"{dp.n_pad}, P_pad {dp.P_pad}; the [R|D] gather at width {2 * r} "
+        f"over {2 * dp.P_pad} ids): {step_ms:.3f} ms per iteration (CUDA "
+        f"events, {nsteps} steps); under torch.profiler {wall_ms:.3f} ms "
+        f"per iteration of host wall, {dev_ms:.4f} ms of device kernel time"
+        f" per iteration (device busy {dev_ms / wall_ms:.3%}); top kernels "
+        f"by device time per iteration (us): {json.dumps(top)}; nvidia-smi:"
+        f" {smi}")
+
+    # (d) two small general solves that converge, float64: θ(C₅) = √5
+    # (n = 5: not entry-eligible) and a random 10-node graph with
+    # entry_mode=False against its entry-mode objective
+    i5 = np.arange(5)
+    c5 = sp.csr_matrix((np.ones(10), (np.r_[i5, (i5 + 1) % 5],
+                                      np.r_[(i5 + 1) % 5, i5])), shape=(5, 5))
+    r5 = sdplr(*lovasz_theta(c5), 3, fprec=0.0, objtol=1e-5, ptol=1e-6,
+               prior_trace_bound=1.0, maxmajoriter=200, dtype="float64",
+               printlevel=0, device=dev)
+    g10 = make_random_graph(10, 0.5, seed=7)
+    kw10 = dict(ptol=1e-3, objtol=1e-3, prior_trace_bound=1.0,
+                dtype="float64", printlevel=0, maxmajoriter=200, device=dev)
+    rg = sdplr(*lovasz_theta(g10), 3, entry_mode=False, **kw10)
+    re = sdplr(*lovasz_theta(g10), 3, **kw10)
+    say("general", f"theta(C_5): engine {r5['inner_engine']}, -obj "
+        f"{-r5['obj']!r} (sqrt 5 = {float(np.sqrt(5.0))!r}), {r5['iter']} "
+        f"iterations; random 10-node graph: general {rg['obj']!r} "
+        f"({rg['inner_engine']}, {rg['iter']} iterations), entry mode "
+        f"{re['obj']!r} ({re['inner_engine']})")
+    assert r5["inner_engine"] == rg["inner_engine"] == ENGINE_GENERAL
+    assert re["inner_engine"] == ENGINE_ENTRY
+    assert abs(-r5["obj"] - np.sqrt(5.0)) < 1e-3, r5["obj"]
+    assert abs(rg["obj"] - re["obj"]) < 1e-3 * abs(re["obj"]), \
+        (rg["obj"], re["obj"])
+    res["solve_s"] = solve_s
+    res["launches"] = launches
+    return res
+
+
+def entry_points_phase(A, jax_obj, zero_counts, smi, dev="cuda"):
+    """Phase 15: the entry points beside the fused driver on the card. The
+    G1-shaped MaxCut of phase 4 through the host-driven loop
+    (fused_outer=False) on K1, against the JAX package's objective and, in
+    float64, against the fused driver's iterations and major iterations;
+    the same solve writing a checkpoint, and a warm start from it; the
+    external-model adapter (solve_model on a dense model of K₂ MaxCut,
+    obj = −1); and profile_dir writing a trace."""
+    import shutil
+
+    import torch
+
+    from sdplrplus_tpu_torch import sdplr
+    from sdplrplus_tpu_torch.adapter import dense_model
+    from sdplrplus_tpu_torch.models import maxcut
+    from sdplrplus_tpu_torch.ops import megakernel as mk
+    from sdplrplus_tpu_torch.solver.outer import ENGINE_GENERAL, solve_model
+    from sdplrplus_tpu_torch.utils.checkpoint import (
+        load_checkpoint, warm_start_from,
+    )
+
+    C, As, b = maxcut(A)
+    n = A.shape[0]
+    kw = dict(ptol=1e-2, objtol=1e-2, prior_trace_bound=float(n), seed=0,
+              printlevel=0, device=dev)
+    zero_counts()
+    t0 = time.time()
+    rh = sdplr(C, As, b, RANK, dtype="float32", fused_outer=False, **kw)
+    torch.cuda.synchronize()
+    host_s = time.time() - t0
+    k1_host = mk.K1.launches
+    rel = abs(rh["obj"] - jax_obj) / abs(jax_obj)
+    f64 = {}
+    for fused in (True, False):
+        f64[fused] = sdplr(C, As, b, RANK, dtype="float64", fused_outer=fused,
+                           **kw)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "sdplrplus_tpu_torch", "_build", "entry_points")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        ckpt = os.path.join(work, "g1.npz")
+        r1 = sdplr(C, As, b, RANK, dtype="float32", checkpoint_path=ckpt,
+                   **kw)
+        st = load_checkpoint(ckpt)
+        init_func, init_args, r_w, sigma0 = warm_start_from(st)
+        r2 = sdplr(C, As, b, r_w, dtype="float32", init_func=init_func,
+                   init_args=init_args, sigma0=sigma0, **kw)
+        model = dense_model(*_k2_dense(), dtype=torch.float64, device=dev)
+        rm = solve_model(model, 1, fprec=0.0, gtol=1e-8, objtol=1e-8,
+                         ptol=1e-8, prior_trace_bound=2.0, printlevel=0)
+        prof = os.path.join(work, "profile")
+        rp = sdplr(C, As, b, RANK, dtype="float32", profile_dir=prof, **kw)
+        trace = rp["profile_trace"]
+        trace_bytes = os.path.getsize(trace)
+        listed = os.listdir(prof)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    say("entry-points", f"host-driven loop (fused_outer=False) on the "
+        f"G1-shaped MaxCut, float32: engine {rh['inner_engine']}, K1 "
+        f"launches {k1_host}, obj {rh['obj']!r} (|obj - JAX|/|JAX| "
+        f"{rel:.3e}), pinfeas {rh['primal_vio']:.3e}, gap "
+        f"{rh['rel_duality_gap']:.3e}, {rh['iter']} iterations, "
+        f"{rh['majoriter']} majors, {host_s:.3f} s; float64 fused / host: "
+        f"iterations {f64[True]['iter']} / {f64[False]['iter']}, majors "
+        f"{f64[True]['majoriter']} / {f64[False]['majoriter']}, obj "
+        f"{f64[True]['obj']!r} / {f64[False]['obj']!r}; checkpoint: rank "
+        f"{st['r']}, majoriter {st['majoriter']}, total_iter "
+        f"{st['total_iter']}, warm start {r2['iter']} iterations (first "
+        f"solve {r1['iter']}), pinfeas {r2['primal_vio']:.3e}; solve_model "
+        f"on a dense K2 model: engine {rm['inner_engine']}, obj "
+        f"{rm['obj']!r}; profile_dir: {os.path.basename(trace)} "
+        f"{trace_bytes} bytes; nvidia-smi: {smi}")
+    assert rh["inner_engine"] == "cuda-megakernel" and k1_host > 0
+    assert rel <= 1e-2, (rh["obj"], jax_obj)
+    assert rh["primal_vio"] <= 1e-2 and rh["rel_duality_gap"] <= 1e-2
+    assert f64[True]["iter"] == f64[False]["iter"]
+    assert f64[True]["majoriter"] == f64[False]["majoriter"]
+    assert st["R"].shape == (n, st["r"]) and st["majoriter"] > 0
+    assert r2["primal_vio"] <= 1e-2 and r2["iter"] <= r1["iter"]
+    assert rm["inner_engine"] == ENGINE_GENERAL
+    assert abs(rm["obj"] + 1.0) < 1e-6, rm["obj"]
+    assert listed == [os.path.basename(trace)] and trace_bytes > 0
+    return rh
+
+
+def _k2_dense():
+    """K₂ MaxCut as dense matrices: C = −L/4, A_i = e_i e_iᵀ, b = 1."""
+    import numpy as np
+
+    C = np.array([[-0.25, 0.25], [0.25, -0.25]])
+    return C, [np.outer(e, e) for e in np.eye(2)], np.ones(2)
+
+
 def main():
+    t_start = time.time()
     import torch
 
     if not torch.cuda.is_available():
@@ -1558,6 +1893,10 @@ def main():
                 zero_counts, smi)
     theta_cycle_phase(THETA_CYCLE_N, THETA_CYCLE_MAXTIME, zero_counts)
 
+    # ---- 14. the general engine at full width, 15. the other entry points -
+    general_phase(GENERAL_N, GENERAL_K, GENERAL_MAXTIME, zero_counts, smi)
+    entry_points_phase(g800, JAX_G1_OBJ, zero_counts, smi)
+
     def probe_row(kernel):
         return next(p for p in probe_rows if p["kernel"] == kernel)
 
@@ -1632,6 +1971,7 @@ def main():
         "bound_by": "bytes",
         "library_ms": probe_row("gather_lanes")["library_ms"],
     }]
+    say("total", f"phases 1-15 in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

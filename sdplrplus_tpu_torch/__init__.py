@@ -6,15 +6,16 @@ quartic (equality) or Armijo (inequality) line search + Lanczos
 suboptimality bound + dynamic rank doubling, with the inner loop as one
 hand-written CUDA kernel: K1 for equality problems and K2 for the
 inequality families (ops/megakernel.py, csrc/megakernel.cu,
-csrc/megakernel_armijo.cu). The entry points
-run on the card unless the caller passes ``device="cpu"``. This package
-imports neither JAX nor ``sdplrplus_tpu``.
+csrc/megakernel_armijo.cu). The entry points (``sdplr``, ``solve``,
+``solve_model`` for an external model of ``adapter.py``) run on the card
+unless the caller passes ``device="cpu"``. This package imports neither
+JAX nor ``sdplrplus_tpu``.
 """
 
 from .config import SolverConfig
 from .problem import SDPProblem, SparseSym, SymLowRank, make_problem, sparse_coo
 from .compile import compile_problem
-from .solver.outer import sdplr, solve
+from .solver.outer import sdplr, solve, solve_model
 from .solver.rank import barvinok_pataki
 from .convert import (
     device_problem_from_numpy,
@@ -32,6 +33,7 @@ __all__ = [
     "compile_problem",
     "sdplr",
     "solve",
+    "solve_model",
     "barvinok_pataki",
     "device_problem_from_numpy",
     "inner_carry_from_numpy",

@@ -114,8 +114,10 @@ class SolverConfig:
     # path for n > 4096, or when the scalar schedule wants more than 1024
     # steps), -1 = always scalar, > 0 = force this block size.
     lanczos_block: int = 0
-    # checkpoint/resume, profiling and multi-device runs are later
-    # slices of the port: setting them raises NotImplementedError.
+    # checkpoint at major boundaries (.npz, utils/checkpoint.py; the
+    # host-driven loop honours checkpoint_every); profile_dir records the
+    # solve with torch.profiler as a Chrome trace. Multi-device runs are
+    # a later slice of the port: devices > 1 raises NotImplementedError.
     checkpoint_path: Optional[str] = None
     checkpoint_every: int = 1     # major iterations between checkpoints
     profile_dir: Optional[str] = None

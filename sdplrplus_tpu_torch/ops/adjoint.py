@@ -12,6 +12,9 @@ triu pattern (``assemble_s_tri``: each position gathers its few
 constraint weights from y) and applied by one ELL SpMM whose values are
 those of S looked up through ``ell_tri`` / ``ell2_tri`` (the general
 ``apply_S``; its row gather is ``gather_rows`` on the card).
+
+An external model (``adapter.CustomModel``) supplies its own
+``fn_apply_S``; ``apply_S`` and ``gradient`` dispatch to it first.
 """
 
 from __future__ import annotations
@@ -47,10 +50,17 @@ def assemble_s_tri(dp: DeviceProblem, y_full: torch.Tensor) -> torch.Tensor:
     return dp.c_val_one * y_full[dp.m] + torch.sum(dp.pos_val * g, dim=1)
 
 
+def _external(dp) -> bool:
+    return getattr(dp, "fn_apply_S", None) is not None
+
+
 def s_tri_for(dp: DeviceProblem, y_full: torch.Tensor):
     """``assemble_s_tri`` where the general ``apply_S`` needs it, else
-    None (the diagonal engines read S from C and the diagonal weights)."""
-    return assemble_s_tri(dp, y_full) if is_general(dp) else None
+    None (the diagonal engines read S from C and the diagonal weights, an
+    external model applies its own S)."""
+    if _external(dp) or not is_general(dp):
+        return None
+    return assemble_s_tri(dp, y_full)
 
 
 def _apply_lowrank(dp: DeviceProblem, y_full, X, out):
@@ -64,8 +74,18 @@ def apply_S(dp: DeviceProblem, y_full: torch.Tensor, X: torch.Tensor,
     """S @ X for X of shape (n_pad, r). On the general path S's values
     come from ``s_tri`` (assembled from y_full when not given) through
     one ELL SpMM."""
+    if _external(dp):
+        return dp.fn_apply_S(y_full, X)
     if not is_general(dp):
         return apply_S_cx(dp, y_full, X, _C_times(dp, X))
+    return apply_S_general(dp, y_full, X, s_tri)
+
+
+def apply_S_general(dp: DeviceProblem, y_full: torch.Tensor, X: torch.Tensor,
+                    s_tri=None) -> torch.Tensor:
+    """S @ X in the general engine's form, for any compiled problem: S's
+    values at the aggregate pattern (``s_tri``, assembled from y_full
+    when not given) through one ELL SpMM, plus the low-rank terms."""
     if s_tri is None:
         s_tri = assemble_s_tri(dp, y_full)
     if dp.has_ell2:
@@ -92,7 +112,7 @@ def gradient_cx(dp: DeviceProblem, R, CX, lam, sigma, vio_raw):
 
 def gradient(dp: DeviceProblem, R, lam, sigma, vio_raw):
     """G = 2·S·R with y = [-min(λ_ub, λ - σ v); 1]. Returns (G, y_full)."""
-    if is_general(dp):
+    if _external(dp) or is_general(dp):
         y_full = y_of(dp, lam, sigma, vio_raw)
         return 2.0 * apply_S(dp, y_full, R), y_full
     return gradient_cx(dp, R, _C_times(dp, R), lam, sigma, vio_raw)

@@ -136,11 +136,13 @@ class DeviceProblem:
 
 def fast_diag_eligible(dp) -> bool:
     """Whether the fast-diagonal single-SpMM inner path applies: every
-    sparse-constraint entry on the diagonal, no dense or entrywise mode."""
+    sparse-constraint entry on the diagonal, no dense or entrywise mode,
+    no external model (adapter.CustomModel)."""
     return bool(
         getattr(dp, "all_cons_diagonal", False)
         and getattr(dp, "C_dense", None) is None
         and getattr(dp, "ew_c2", None) is None
+        and getattr(dp, "fn_apply_S", None) is None
     )
 
 

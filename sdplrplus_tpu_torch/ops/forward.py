@@ -12,13 +12,18 @@ rows), and ⟨C, UVᵀ⟩ = ⟨U, CV⟩ needs one product with C:
     ``spmm_C``; the inner loop carries CX = C@R, so the ``*_cx`` forms
     take that product precomputed.
 
-Problems with off-diagonal constraint entries (Lovász θ) take the general
-form of ``A_uu``: UUᵀ sampled at the aggregate upper-triangular pattern
-(``uv_values_uu``: one row gather of U at the pattern's rows and columns,
+Problems with off-diagonal constraint entries outside entry mode (Lovász
+θ past n_pad 8192, or with ``entry_mode=False``) take the general engine:
+UUᵀ, (UVᵀ+VUᵀ)/2 or the line search's pair sampled at the aggregate
+upper-triangular pattern by one row gather of the factor (or of [U|V],
+[R|D]) at the pattern's rows and columns (``DeviceProblem.uv_ids``,
 through the hand-written ``gather_rows`` on the card), then reduced per
-constraint (``_reduce``). The entry-mask engine builds its carries with
-it. The general inner engine (``A_uv``, ``A_linesearch`` on such
-problems) is a later slice and raises.
+constraint (``_reduce``), whose slot m is ⟨C, ·⟩. The entry-mask engine
+builds its carries with the general ``A_uu`` too.
+
+An external model (``adapter.CustomModel``) supplies its own ``fn_A_uu``
+and ``fn_A_uv``; ``A_uu``, ``A_uv`` and ``A_linesearch`` dispatch to them
+first.
 
 Low-rank operands are tall-skinny matmuls UᵀB. Output convention: a
 length-(m+1) vector whose slot ``m`` carries ⟨C, ·⟩ (the objective) and
@@ -40,17 +45,10 @@ def is_general(dp: DeviceProblem) -> bool:
     return dp.C_dense is None and not dp.all_cons_diagonal
 
 
-def require_diagonal(dp: DeviceProblem, what: str):
-    """Raise for the general inner engine, which is not ported yet."""
-    if is_general(dp):
-        raise NotImplementedError(
-            f"{what} with off-diagonal constraint entries needs the general "
-            "inner engine, which is not ported yet (ROADMAP slice E)")
-
-
 def _C_times(dp: DeviceProblem, X: torch.Tensor) -> torch.Tensor:
-    """C@X (sparse part of C; low-rank C terms are added by the caller)."""
-    require_diagonal(dp, "C@X")
+    """C@X on the diagonal engines (sparse part of C; low-rank C terms are
+    added by the caller). The general engine reads ⟨C, ·⟩ from the
+    objective slot of ``_reduce`` and S·X from the general ``apply_S``."""
     return dp.C_dense @ X if dp.C_dense is not None else spmm_C(dp, X)
 
 
@@ -74,6 +72,22 @@ def uv_values_uu(dp: DeviceProblem, U: torch.Tensor) -> torch.Tensor:
     (``DeviceProblem.uv_ids``)."""
     Ug = gather_rows(U.contiguous(), dp.uv_ids)
     return torch.sum(Ug[:dp.P_pad] * Ug[dp.P_pad:], dim=1)
+
+
+def _gather_pair(dp: DeviceProblem, U: torch.Tensor, V: torch.Tensor):
+    """[U|V] at the pattern's rows and at its columns, by one row gather
+    at width 2r: (Ur, Vr, Uc, Vc), each (P_pad, r)."""
+    r = U.shape[1]
+    G = gather_rows(torch.cat([U, V], dim=1), dp.uv_ids)
+    Gr, Gc = G[:dp.P_pad], G[dp.P_pad:]
+    return Gr[:, :r], Gr[:, r:], Gc[:, :r], Gc[:, r:]
+
+
+def uv_values_uv(dp: DeviceProblem, U: torch.Tensor,
+                 V: torch.Tensor) -> torch.Tensor:
+    """((UVᵀ+VUᵀ)/2) sampled at the aggregate triu pattern -> (P_pad,)."""
+    Ur, Vr, Uc, Vc = _gather_pair(dp, U, V)
+    return 0.5 * (torch.sum(Ur * Vc, dim=1) + torch.sum(Vr * Uc, dim=1))
 
 
 def _dense_cons(dp: DeviceProblem, rowvals: torch.Tensor) -> torch.Tensor:
@@ -130,14 +144,20 @@ def A_linesearch_cd(dp: DeviceProblem, R: torch.Tensor, D: torch.Tensor,
 def A_uu(dp: DeviceProblem, U: torch.Tensor) -> torch.Tensor:
     """𝒜(UUᵀ) -> (m+1,), slot m = ⟨C, UUᵀ⟩ (= ⟨U, CU⟩ when every
     constraint entry is diagonal)."""
+    if getattr(dp, "fn_A_uu", None) is not None:  # external model
+        return dp.fn_A_uu(U)
     if is_general(dp):
         return _add_lowrank(_reduce(dp, uv_values_uu(dp, U)), dp, U, U)
     return A_uu_cx(dp, U, _C_times(dp, U))
 
 
 def A_uv(dp: DeviceProblem, U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
-    """𝒜((UVᵀ+VUᵀ)/2) -> (m+1,); ⟨C,(UVᵀ+VUᵀ)/2⟩ = ⟨U, CV⟩ (C symmetric)."""
-    require_diagonal(dp, "A_uv")
+    """𝒜((UVᵀ+VUᵀ)/2) -> (m+1,); ⟨C,(UVᵀ+VUᵀ)/2⟩ = ⟨U, CV⟩ (C symmetric)
+    on the diagonal engines."""
+    if getattr(dp, "fn_A_uv", None) is not None:  # external model
+        return dp.fn_A_uv(U, V)
+    if is_general(dp):
+        return _add_lowrank(_reduce(dp, uv_values_uv(dp, U, V)), dp, U, V)
     vals = _fast_vals(dp, torch.sum(U * V, dim=1),
                       torch.sum(U * _C_times(dp, V)))
     return _add_lowrank(vals, dp, U, V)
@@ -145,7 +165,14 @@ def A_uv(dp: DeviceProblem, U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
 
 def A_linesearch(dp: DeviceProblem, R: torch.Tensor, D: torch.Tensor):
     """(A_RD, A_DD) with A_RD = 𝒜(RDᵀ + DRᵀ) (the ×2-scaled quantity the
-    line search uses) and A_DD = 𝒜(DDᵀ); ONE product CD serves both
-    objective slots: 2⟨R, CD⟩ and ⟨D, CD⟩."""
-    require_diagonal(dp, "A_linesearch")
+    line search uses) and A_DD = 𝒜(DDᵀ). On the diagonal engines ONE
+    product CD serves both objective slots: 2⟨R, CD⟩ and ⟨D, CD⟩; on the
+    general engine one gather of [R|D] at width 2r serves both samples."""
+    if getattr(dp, "fn_A_uv", None) is not None:  # external model
+        return 2.0 * dp.fn_A_uv(R, D), dp.fn_A_uu(D)
+    if is_general(dp):
+        Rr, Dr, Rc, Dc = _gather_pair(dp, R, D)
+        A_RD = _reduce(dp, torch.sum(Rr * Dc + Dr * Rc, dim=1))
+        A_DD = _reduce(dp, torch.sum(Dr * Dc, dim=1))
+        return _add_lowrank(A_RD, dp, R, D, 2.0), _add_lowrank(A_DD, dp, D, D)
     return A_linesearch_cd(dp, R, D, _C_times(dp, D))

@@ -233,6 +233,8 @@ def megakernel_eligible(dp: DeviceProblem, r: int, k: int, use_armijo: bool,
     and within the layout's limits."""
     if dtype not in (torch.float32, torch.float64):
         return False
+    if getattr(dp, "fn_apply_S", None) is not None:  # external model
+        return False
     if dp.ew_c2 is not None or len(dp.lowrank) > MAX_LR_TERMS:
         return False
     lam_ub = dp.lam_ub.detach().cpu().numpy()

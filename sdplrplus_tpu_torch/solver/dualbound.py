@@ -135,7 +135,8 @@ def dual_obj(dp: DeviceProblem, lam, sigma, vio_raw, trace_bound: float,
              iter_count: int, generator: torch.Generator,
              highprecision: bool = False, safeguard: bool = True, R=None,
              v0=None, block: tuple | None = None,
-             margin_target: float = 0.0, R_seed=None, k_min: int = 4):
+             margin_target: float = 0.0, R_seed=None, k_min: int = 4,
+             stats: dict | None = None):
     """Returns (dual_value, min_eig, y_full) (reference:
     src/coreop.jl:376-415). With ``safeguard`` the Lanczos Ritz value is
     corrected by its residual bound β_k·|s_k|. With ``R`` on an
@@ -148,7 +149,9 @@ def dual_obj(dp: DeviceProblem, lam, sigma, vio_raw, trace_bound: float,
     ``R``), early exit once the certified margin drops below
     ``margin_target`` (λ units) and at least ``k_min`` steps (the
     caller's minimum Krylov depth). The block path is always
-    residual-safeguarded."""
+    residual-safeguarded. ``stats``, when given, receives the operator
+    passes spent under ``"passes"`` (block steps on the block path,
+    Lanczos steps on the scalar one)."""
     if R is not None and entry_enabled(dp):
         y_ls_head = ls_dual_entry(dp, R)
         return dual_obj(dp, -y_ls_head, torch.zeros_like(sigma),
@@ -156,7 +159,7 @@ def dual_obj(dp: DeviceProblem, lam, sigma, vio_raw, trace_bound: float,
                         generator, highprecision=highprecision,
                         safeguard=safeguard, v0=v0, block=block,
                         margin_target=margin_target, R_seed=R,
-                        k_min=k_min)
+                        k_min=k_min, stats=stats)
     if R is not None and dp.ls_eligible:
         y_al = -torch.minimum(dp.lam_ub, lam - sigma * vio_raw[: dp.m])
         y_ls_head = ls_dual_head(dp, R, y_fallback=y_al)
@@ -166,14 +169,16 @@ def dual_obj(dp: DeviceProblem, lam, sigma, vio_raw, trace_bound: float,
                         generator, highprecision=highprecision,
                         safeguard=safeguard, v0=v0, block=block,
                         margin_target=margin_target, R_seed=R,
-                        k_min=k_min)
+                        k_min=k_min, stats=stats)
     dtype = lam.dtype
     y_full = y_of(dp, lam, sigma, vio_raw)
     S_dense = assemble_S_dense(dp, y_full) if entry_enabled(dp) else None
     if block is not None and block[0] > 0:
-        theta, margin, _ = block_lanczos_min_eig(
+        theta, margin, k_used = block_lanczos_min_eig(
             dp, y_full, generator, R_seed, margin_target, int(k_min),
             b=int(block[0]), k_max=int(block[1]), S_dense=S_dense)
+        if stats is not None:
+            stats["passes"] = int(k_used)
         min_eig = theta - margin
         yb = float(torch.dot(y_full[: dp.m], dp.b))
         return -yb + float(trace_bound) * min(min_eig, 0.0), min_eig, y_full
@@ -189,6 +194,8 @@ def dual_obj(dp: DeviceProblem, lam, sigma, vio_raw, trace_bound: float,
         q_max = bucket_q_max(q)
         alpha, beta, k_eff = lanczos_alpha_beta_impl(
             dp, y_full, v0, q, q_max=q_max, S_dense=S_dense)
+    if stats is not None:
+        stats["passes"] = int(k_eff)
     if safeguard:
         if q_max > 1024:
             theta, margin = tridiag_min_eig_resid(alpha, beta, k_eff)

@@ -8,39 +8,55 @@ boundary it crosses; the host checks wall-clock limits, prints, and
 re-specializes shapes on rank doubling. After the solve come the host
 f64 dual polish and the reseed ladder.
 
-The port runs problems whose sparse constraints are all diagonal: the
-dense engine (C held dense: MaxCut, MinBisection, CutNorm at n_pad ≤
-2048) and the fast-diagonal engine (C kept sparse: MaxCut and its kin
-past n_pad 2048, μ-conductance, whose wide volume constraint keeps C out
-of dense mode), with equality constraints (exact line search) or
-inequalities (Armijo); and the single-entry equality families (Lovász θ)
-on the entry-mask engine (solver/inner_entry.py), which compile_problem
-picks for them at n_pad ≤ 8192, with θ's trace-normalized scaling
-conditioned first (``_maybe_rescale_entry``). The dual bound is the
+The inner engines: the dense engine (C held dense: MaxCut, MinBisection,
+CutNorm at n_pad ≤ 2048), the fast-diagonal engine (every constraint
+entry diagonal, C kept sparse: MaxCut and its kin past n_pad 2048,
+μ-conductance), the entry-mask engine (the single-entry equality
+families, Lovász θ, at n_pad ≤ 8192; solver/inner_entry.py), and the
+general engine (off-diagonal constraint entries otherwise: θ past n_pad
+8192 or with ``entry_mode=False``, and external models through
+``solve_model``), each with equality constraints (exact line search) or
+inequalities (Armijo); the CUDA megakernels K1 and K2 take eligible
+problems on the card. θ's trace-normalized scaling is conditioned first
+(``_maybe_rescale_entry``), whatever the engine. The dual bound is the
 scalar or block Lanczos (block past n = 4096, when forced, or when the
-scalar schedule wants more than 1024 steps). Other engines and options
-raise NotImplementedError naming the ROADMAP slice that ports them.
+scalar schedule wants more than 1024 steps).
+
+Two drivers run the same mathematics: the fused driver (``_solve_fused``,
+the default), whose state machine crosses many major boundaries per
+call, and the host-driven loop (``_solve_host``, ``fused_outer=False``),
+which reads the state on the host after every inner chunk. Both write a
+checkpoint at major boundaries when ``checkpoint_path`` is set
+(utils/checkpoint.py); ``profile_dir`` records the solve with
+torch.profiler. Multi-device solving (``devices > 1``) raises
+NotImplementedError naming the ROADMAP slice that ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..adapter import CustomModel
 from ..compile import compile_problem
 from ..config import SolverConfig, resolve_device, resolve_dtype
 from ..ops.blocklanczos import block_sizes
 from ..ops.device import DeviceProblem, fast_diag_eligible, to_device
 from ..ops.entrymask import entry_enabled
+from ..ops.lanczos import bucket_q_max, lanczos_q
 from ..problem import SDPProblem
+from ..utils.checkpoint import save_checkpoint
 from ..utils.printing import print_heading, print_intermediate
 from .dualbound import dimacs_errors, dual_obj
-from .inner_entry import EntryGraphs
-from .lbfgs import lbfgs_init
+from .al import al_value_grad
+from .inner import inner_chunk
+from .inner_entry import EntryGraphs, entry_chunk
+from .lbfgs import lbfgs_clear, lbfgs_init
 from .rank import next_rank
 
 _EPS64 = float(np.finfo(np.float64).eps)
@@ -50,6 +66,7 @@ ENGINE_PLAIN = "megakernel-plain"     # their plain versions (CPU tensors)
 ENGINE_TORCH = "dense-torch"          # the torch inner loop, dense C
 ENGINE_FAST = "fast-diag-torch"       # the torch inner loop, sparse C
 ENGINE_ENTRY = "entry-mask-torch"     # the dense-mask loop (Lovász θ)
+ENGINE_GENERAL = "general-torch"      # the torch inner loop, general 𝒜
 
 
 def _init_vars(prob, dp, r: int, config: SolverConfig, dtype,
@@ -141,8 +158,7 @@ def _entry_term_obj(dp, vio_raw, objtol: float, objtol_relative: bool):
     """Host mirror of the state machine's entry-mode termination
     objective (solver/major.entry_certified_obj): the mixed certificate
     when its PSD-repair overhead fits half the objtol budget, else the
-    linear-feasible value plus that half (the host-driven loop's, which
-    ``fused_outer=False`` will run; slice F)."""
+    linear-feasible value plus that half (the host-driven loop's)."""
     lin, mixed, mix_obj = _entry_mix(dp, vio_raw)
     if lin is None:
         return mix_obj
@@ -313,7 +329,9 @@ def _engine_name(dp, use_mega: bool) -> str:
         return ENGINE_KERNEL if dp.device.type == "cuda" else ENGINE_PLAIN
     if entry_enabled(dp):
         return ENGINE_ENTRY
-    return ENGINE_FAST if fast_diag_eligible(dp) else ENGINE_TORCH
+    if dp.C_dense is not None:
+        return ENGINE_TORCH
+    return ENGINE_FAST if fast_diag_eligible(dp) else ENGINE_GENERAL
 
 
 def _final_gap(obj: float, max_dual: float, have_dual) -> float:
@@ -392,13 +410,6 @@ def solve(prob: SDPProblem, r: int, config: SolverConfig) -> dict:
     R = R'/√f, multipliers y = f·y', ``entry_rescale_f`` = f."""
     if int(config.devices) > 1:
         _not_ported("multi-device solving (devices > 1)", "slice G")
-    if config.profile_dir is not None:
-        _not_ported("profiling (profile_dir)", "slice F")
-    if config.checkpoint_path is not None:
-        _not_ported("checkpointing (checkpoint_path)", "slice F")
-    if not config.fused_outer:
-        _not_ported("the host-driven loop (fused_outer=False, _solve_host)",
-                    "slice F")
     device = resolve_device(config)
     dtype = resolve_dtype(config)
     if config.printlevel > 0:
@@ -408,13 +419,10 @@ def solve(prob: SDPProblem, r: int, config: SolverConfig) -> dict:
     t_pre = time.time()
     cp = compile_problem(prob, dense=config.dense_mode,
                          entry=config.entry_mode)
-    if cp.ew_c2 is None and cp.C_dense is None and not cp.all_cons_diagonal:
-        _not_ported("the general inner engine (off-diagonal constraint "
-                    "entries outside entry mode)", "slice E")
     dp = to_device(cp, dtype, device)
     preprocess_time = time.time() - t_pre
 
-    result = _solve(prob, dp, r, config, dtype)
+    result = _profiled(config, lambda: _solve(prob, dp, r, config, dtype))
     result["preprocess_time"] = preprocess_time
     result["totaltime"] += preprocess_time
     result["devices"] = 1
@@ -433,7 +441,62 @@ def solve(prob: SDPProblem, r: int, config: SolverConfig) -> dict:
     return result
 
 
+def solve_model(model: CustomModel, r: int,
+                config: Optional[SolverConfig] = None, **kwargs) -> dict:
+    """Solve an external model (adapter.CustomModel) at starting rank
+    ``r`` — the analog of the reference's SolverCore.solve! path
+    (reference: src/lowrankopt.jl:33-53). It runs where the model's
+    tensors are (the card unless the model was built with
+    ``device="cpu"``), in the model's dtype; ``config.device`` and
+    ``config.dtype`` are not read."""
+    cfg = (config or SolverConfig()).copy_with(**kwargs)
+    if int(cfg.devices) > 1:
+        _not_ported("multi-device solving (devices > 1)", "slice G")
+    if cfg.printlevel > 0:
+        print_heading(True)
+    result = _solve(model, model, r, cfg, model.dtype)
+    result["preprocess_time"] = 0.0
+    result["devices"] = 1
+    if cfg.printlevel > 0:
+        print_heading(False)
+    return result
+
+
+def _profiled(config: SolverConfig, fn) -> dict:
+    """``fn()``, under torch.profiler when ``config.profile_dir`` is set
+    (the JAX package's jax.profiler.trace, outer.py:422-425): the host's
+    operators and, on the card, its kernels, written into the directory
+    as a Chrome trace, whose path the result gives as ``profile_trace``."""
+    if config.profile_dir is None:
+        return fn()
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(config.device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(config.profile_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        result = fn()
+    path = os.path.join(config.profile_dir,
+                        f"sdplr_trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    result["profile_trace"] = path
+    return result
+
+
+def _has_inequalities(prob) -> bool:
+    """Whether the problem has inequality constraints. The JAX package
+    reads ``prob.constraint_types`` here, which an external model lacks
+    (ROADMAP F1); the model says so itself."""
+    if isinstance(prob, CustomModel):
+        return prob.has_inequalities
+    ct = prob.constraint_types
+    return ct is not None and bool(np.any(ct))
+
+
 def _solve(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
+    if not config.fused_outer:
+        return _solve_host(prob, dp, r, config, dtype)
     result = _solve_fused(prob, dp, r, config, dtype)
 
     def _gap_of(res):
@@ -445,10 +508,11 @@ def _solve(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
         # certificate misses the tolerance the slack is in the dual
         # multiplier; any y certifies by weak duality, so maximizing d(y)
         # in float64 can only tighten the reported bound
-        eq_only = (prob.constraint_types is None
-                   or not bool(np.any(prob.constraint_types)))
+        # it reads C and the Aᵢ on the host, which an external model has
+        # only as callables
         gap_now = _gap_of(res)
-        if not (eq_only and np.isfinite(config.objtol)
+        if not (isinstance(prob, SDPProblem) and not _has_inequalities(prob)
+                and np.isfinite(config.objtol)
                 and config.objtol > 0
                 and np.isfinite(gap_now) and gap_now > config.objtol
                 and res.get("lambda") is not None
@@ -528,10 +592,7 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
     """Each call of major_chunk runs up to ``inner_chunk`` inner steps and
     every major-iteration boundary it crosses; the host checks limits,
     prints, and re-specializes shapes on rank doubling."""
-    from ..ops.lanczos import bucket_q_max, lanczos_q
-    from ..ops.megakernel import (
-        mega_spec_for, megakernel_eligible, prepare_mega_data,
-    )
+    from ..ops.megakernel import mega_spec_for, megakernel_eligible
     from .major import init_major_carry, major_chunk
 
     n, m = dp.n, dp.m
@@ -553,26 +614,7 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
     stag_tol = _stagnation_tol(config, dtype)
     sigma0 = float(config.sigma0)
 
-    # the inner engine (outer.py:607-615, :1137-1149): 'auto' takes a
-    # megakernel (K1 for equality problems, K2 for inequalities) on CUDA
-    # when eligible; 'mega' takes it on CUDA and its plain version on the
-    # CPU; 'xla' takes the torch inner loop
-    mega_meta = mega_data = None
-    if config.inner_impl in ("auto", "mega"):
-        eligible = megakernel_eligible(dp, r, k, use_armijo, dtype)
-        if config.inner_impl == "mega" and not eligible:
-            raise ValueError(
-                "inner_impl='mega' requested but the problem is not "
-                "megakernel-eligible (needs every constraint entry on the "
-                "diagonal with one entry per narrow constraint; K1 also "
-                "needs dense C and equality constraints only, K2 at most "
-                "4 channels per row and 2 wide constraints; plus the "
-                "layout limits of ops/megakernel.py)")
-        if config.inner_impl == "auto" and dp.device.type != "cuda":
-            eligible = False
-        if eligible:
-            mega_meta, mega_data = prepare_mega_data(
-                dp, k=k, gtol_relative=gtol_rel, ptol_relative=ptol_rel)
+    mega_meta, mega_data = _mega_setup(dp, r, k, use_armijo, dtype, config)
 
     def blk_for(r_now: int, q_raw: int = 0) -> tuple:
         return _blk_for(config.lanczos_block, config.eigval_highprecision,
@@ -688,6 +730,13 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
                 float(carry.cur_ptol), float(carry.ic.grad_norm), vio_norm,
                 float(carry.min_gap), float(carry.max_dual),
             )
+
+        # the state at this call's last major boundary (outer.py:830-838)
+        if config.checkpoint_path is not None:
+            save_checkpoint(
+                config.checkpoint_path, R=carry.ic.R[:n].cpu().numpy(),
+                lam=carry.lam.cpu().numpy(), sigma=float(carry.sigma), r=r,
+                majoriter=majoriter, total_iter=total_iter)
 
         if carry.converged:
             break
@@ -807,18 +856,22 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
         extra_dual_passes = blk_f[1] if blk_f[0] else 1024
 
     # dual-time attribution from the measured operator-pass count
-    # (outer.py:1013-1049): on the gather-bound fast-diagonal engine an
-    # inner iteration is one SpMM, as is a Krylov pass of any lane count;
-    # on the matmul-bound engines (dense, megakernels, entry-mask) an
-    # inner iteration costs ~3·r units and a Krylov pass its lane count
-    # (b or 1)
+    # (outer.py:1013-1049): on the gather-bound engines a Krylov pass of
+    # any lane count costs one ELL SpMM, and an inner iteration one SpMM
+    # (fast-diagonal) or three passes (general: the [R|D] gather of the
+    # line search and the gradient's SpMM, counted as the JAX package's
+    # two line-search products and one adjoint); on the matmul-bound
+    # engines (dense, megakernels, entry-mask) an inner iteration costs
+    # ~3·r units and a Krylov pass its lane count (b or 1)
     dual_time = 0.0
     total_steps = base_total + carry.ic.steps
     dual_passes = carry.dual_passes + extra_dual_passes
     if dual_passes > 0 and total_steps > 0:
-        if _engine_name(dp, bool(mega_kwargs(r))) == ENGINE_FAST:
+        engine = _engine_name(dp, bool(mega_kwargs(r)))
+        if engine in (ENGINE_FAST, ENGINE_GENERAL):
             dual_units = float(dual_passes)
-            primal_units = float(total_steps)
+            primal_units = (1.0 if engine == ENGINE_FAST else 3.0) \
+                * float(total_steps)
         else:
             lanes = max(blk_for(r)[0], 1)
             dual_units = float(dual_passes) * float(lanes)
@@ -873,5 +926,348 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
         "r": r,
         "timed_out": timed_out,
         "inner_engine": _engine_name(dp, bool(mega_kwargs(r))),
+        "dtype": str(dtype).replace("torch.", ""),
+    }
+
+
+def _mega_setup(dp, r: int, k: int, use_armijo: bool, dtype,
+                config: SolverConfig):
+    """The megakernel's host-side data for both drivers, or (None, None)
+    for the torch inner loop (outer.py:607-615, :1137-1149): 'auto' takes
+    a megakernel (K1 for equality problems, K2 for inequalities) on CUDA
+    when eligible; 'mega' takes it on CUDA and its plain version on the
+    CPU, and raises when the problem is not eligible; 'xla' takes the
+    torch inner loop."""
+    from ..ops.megakernel import megakernel_eligible, prepare_mega_data
+
+    if config.inner_impl not in ("auto", "mega"):
+        return None, None
+    eligible = megakernel_eligible(dp, r, k, use_armijo, dtype)
+    if config.inner_impl == "mega" and not eligible:
+        raise ValueError(
+            "inner_impl='mega' requested but the problem is not "
+            "megakernel-eligible (needs every constraint entry on the "
+            "diagonal with one entry per narrow constraint; K1 also "
+            "needs dense C and equality constraints only, K2 at most "
+            "4 channels per row and 2 wide constraints; plus the "
+            "layout limits of ops/megakernel.py)")
+    if config.inner_impl == "auto" and dp.device.type != "cuda":
+        return None, None
+    if not eligible:
+        return None, None
+    return prepare_mega_data(dp, k=k, gtol_relative=config.gtol_mode
+                             == "relative",
+                             ptol_relative=config.ptol_mode == "relative")
+
+
+def _solve_host(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
+    """The host-driven loop, ``fused_outer=False`` (outer.py:1110-1462):
+    the host runs each major iteration, calling the inner loop in chunks
+    of up to ``inner_chunk`` steps (K1 or K2 through ``mega_run_for`` when
+    eligible on the card, the entry chunk in entry mode, else the torch
+    inner loop) and reading the state after each chunk; then, at the
+    boundary, the dual bound (at strict boundaries), the gap, dual ascent
+    or the penalty update, rank doubling, the checkpoint and the fg!
+    re-sync. The same mathematics as the fused driver, which the tests
+    hold it against."""
+    from ..ops.megakernel import mega_chunk, mega_spec_for, megakernel_eligible
+
+    n, m = dp.n, dp.m
+    rng = np.random.default_rng(config.seed)
+    gen = torch.Generator().manual_seed(int(config.seed))
+    dev = dp.device
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+
+    starttime = time.time()
+    lastprint = starttime
+
+    R, lam = _init_vars(prob, dp, r, config, dtype, rng)
+    R0_np, lam0_np = R[:n].cpu().numpy(), lam.cpu().numpy()
+    sigma = float(config.sigma0)
+
+    k = int(config.numlbfgsvecs)
+    use_armijo = dp.has_inequalities
+    gtol_rel = config.gtol_mode == "relative"
+    ptol_rel = config.ptol_mode == "relative"
+    objtol_rel = config.objtol_mode == "relative"
+    lbfgs_compact = config.lbfgs_impl == "compact"
+    stag_tol = _stagnation_tol(config, dtype)
+    pscale = dp.normb if ptol_rel else 1.0
+    lbfgs = lbfgs_init(k, dp.n_pad, r, dtype, dev)
+    entry_graphs = EntryGraphs()
+    # minimum block-Krylov depth ~ log2(n), as the JAX package's dual_obj
+    # takes it (dualbound.py:247)
+    k_min_base = max(4, int(np.ceil(np.log2(max(n, 2)))))
+
+    mega_meta, mega_data = _mega_setup(dp, r, k, use_armijo, dtype, config)
+    mega_specs = {}
+
+    def mega_run_for(r_now: int):
+        """The megakernel's spec for the current rank, or None (the torch
+        or entry inner loop): the rank may grow past its layout."""
+        if mega_meta is None:
+            return None
+        if r_now not in mega_specs:
+            if not megakernel_eligible(dp, r_now, k, use_armijo, dtype):
+                return None
+            mega_specs[r_now] = mega_spec_for(mega_meta, r_now)
+        return mega_specs[r_now]
+
+    def fg():
+        L, v, G_, y, gn, pn = al_value_grad(dp, R, lam, t(sigma), gtol_rel,
+                                            ptol_rel)
+        return L, v, G_, y, float(gn), float(pn)
+
+    cur_gtol = max(1.0 / sigma, _gtol_floor(config, dtype))
+    cur_ptol = max(1.0 / sigma ** 0.1, config.ptol)
+    L_val, vio_raw, G, y_full, grad_norm, vio_norm = fg()
+
+    total_iter = 0
+    majoriter = 0
+    dual_time = 0.0
+    dual_count = 0
+    dual_passes = 0
+    duality_gap = 1e20
+    min_duality_gap = 1e20
+    max_dual_value = -1e20
+    best_lam = lam.cpu().numpy().astype(np.float64)
+    rankupd_cnt = config.rankupd_tol
+
+    def maybe_print(localiter, force=False):
+        nonlocal lastprint
+        now = time.time()
+        if force or now - lastprint >= config.printfreq:
+            lastprint = now
+            if config.printlevel > 0:
+                print_intermediate(
+                    config.dataset, majoriter, localiter, total_iter,
+                    float(L_val), float(vio_raw[m]), sigma, cur_gtol,
+                    cur_ptol, grad_norm, vio_norm, min_duality_gap,
+                    max_dual_value)
+
+    timed_out = False
+    for _ in range(config.maxmajoriter):
+        majoriter += 1
+        localiter = 0
+
+        # the inner loop in chunks (reference: src/sdplr.jl:190-278)
+        while grad_norm > cur_gtol:
+            steps = min(config.inner_chunk, config.maxiter - total_iter + 1)
+            if steps <= 0:
+                break
+            spec = mega_run_for(r)
+            if spec is not None:
+                c, pnorm = mega_chunk(spec, r, m, pscale, mega_data, R, lbfgs,
+                                      lam, t(sigma), t(cur_gtol),
+                                      t(stag_tol), steps)
+            elif entry_enabled(dp):
+                c, pnorm = entry_chunk(
+                    dp, R, G, vio_raw, L_val, t(grad_norm), lbfgs, lam,
+                    t(sigma), t(cur_gtol), t(stag_tol), steps, k=k,
+                    gtol_relative=gtol_rel, ptol_relative=ptol_rel,
+                    lbfgs_compact=lbfgs_compact, graphs=entry_graphs)
+            else:
+                c, pnorm = inner_chunk(
+                    dp, R, G, y_full, vio_raw, L_val, t(grad_norm), lbfgs,
+                    lam, t(sigma), t(cur_gtol), t(stag_tol), steps, k=k,
+                    use_armijo=use_armijo, gtol_relative=gtol_rel,
+                    ptol_relative=ptol_rel, lbfgs_compact=lbfgs_compact)
+            R, G, y_full, vio_raw, L_val = c.R, c.G, c.y_full, c.vio_raw, \
+                c.L_val
+            lbfgs = c.lbfgs
+            localiter += int(c.steps)
+            total_iter += int(c.steps)
+            grad_norm = float(c.grad_norm)
+            vio_norm = float(pnorm)
+            maybe_print(localiter)
+            if bool(c.stagnated):
+                break
+            if (time.time() - starttime > config.maxtime
+                    or total_iter > config.maxiter):
+                break
+
+        maybe_print(localiter, force=True)
+
+        if time.time() - starttime > config.maxtime:
+            print("Warning: time limit exceeded. Stop optimizing.")
+            timed_out = True
+            break
+        if total_iter > config.maxiter:
+            print("Warning: iteration limit exceeded. Stop optimizing.")
+            break
+
+        rank_double = False
+        converged = False
+
+        if vio_norm <= cur_ptol:
+            # the dual bound at strict boundaries only (src/sdplr.jl:310-
+            # 357), the multiplier alternating between the least-squares
+            # estimate (R passed) and the AL ascent iterate, as in the
+            # fused driver (solver/major.py dual_bound)
+            t_dual = time.time()
+            if vio_norm <= config.ptol:
+                blk = (0, 0)
+                if (config.lanczos_block >= 0
+                        and not config.eigval_highprecision
+                        and (config.lanczos_block > 0 or n > 4096)):
+                    blk = block_sizes(n, r, max(config.lanczos_block, 0))
+                obj_now = abs(float(vio_raw[m]))
+                mt = 0.25 * config.objtol * (
+                    max(obj_now, 1e-8) if objtol_rel else 1.0
+                ) / max(config.prior_trace_bound, 1.0)
+                stats = {}
+                dual_value, _, y_dual = dual_obj(
+                    dp, lam, t(sigma), vio_raw, config.prior_trace_bound,
+                    max(total_iter, 1), gen,
+                    highprecision=config.eigval_highprecision,
+                    safeguard=config.dual_safeguard,
+                    R=R if dual_count % 2 == 0 else None,
+                    block=blk if blk[0] else None, margin_target=mt,
+                    R_seed=R, k_min=min(k_min_base, blk[1]) if blk[0] else 4,
+                    stats=stats)
+                dual_count += 1
+                dual_passes += stats["passes"]
+            else:
+                dual_value = -np.inf
+            dual_time += time.time() - t_dual
+
+            if dual_value > max_dual_value:
+                best_lam = -y_dual[:m].cpu().numpy().astype(np.float64)
+                max_dual_value = dual_value
+            # the termination objective is the certificate the result
+            # reports: the feasibility-projected or entry-certified value
+            obj = float(vio_raw[m])
+            if vio_norm <= config.ptol:
+                if dp.entry_trace_cert:
+                    obj = _entry_term_obj(dp, vio_raw.cpu().numpy(),
+                                          config.objtol, objtol_rel)
+                else:
+                    obj_cert = _feasible_obj(
+                        prob, dp, R[:n].cpu().numpy().astype(np.float64),
+                        vio_raw.cpu().numpy())
+                    if obj_cert is not None and np.isfinite(obj_cert):
+                        obj = float(obj_cert)
+            if objtol_rel:
+                denom = min(abs(obj), abs(max_dual_value))
+                duality_gap = ((obj - max_dual_value) / denom if denom > 0
+                               else np.inf)
+            else:
+                duality_gap = obj - max_dual_value
+
+            if vio_norm <= config.ptol:
+                if config.objtol == np.inf:
+                    converged = True
+                elif duality_gap <= config.objtol:
+                    min_duality_gap = min(min_duality_gap, duality_gap)
+                    converged = True
+                else:
+                    if min_duality_gap - duality_gap < config.objtol:
+                        rankupd_cnt -= 1
+                    else:
+                        rankupd_cnt = config.rankupd_tol
+                    min_duality_gap = min(min_duality_gap, duality_gap)
+                    if rankupd_cnt == 0:
+                        rank_double = True
+            if converged:
+                break
+
+            # dual ascent λ ← min(λ_ub, λ − σv) (src/sdplr.jl:358-364)
+            lam = torch.minimum(dp.lam_ub, lam - t(sigma) * vio_raw[:m])
+            cur_ptol = cur_ptol / sigma ** 0.9
+            cur_gtol = cur_gtol / sigma
+        else:
+            # infeasible: tighten the penalty (src/sdplr.jl:365-370)
+            sigma *= config.sigmafac
+            cur_ptol = 1.0 / sigma ** 0.1
+            cur_gtol = 1.0 / sigma
+
+        # rank doubling (src/sdplr.jl:372-386)
+        if rank_double:
+            r = next_rank(r, n, m)
+            if config.rank_update_mode == "warm" and config.init_func is None:
+                R = _warm_vars(dp, R, r, rng, dtype)
+            else:
+                R, lam = _init_vars(prob, dp, r, config, dtype, rng)
+                sigma = float(config.sigma0)
+                cur_ptol = 1.0 / sigma ** 0.1
+                cur_gtol = 1.0 / sigma
+                min_duality_gap = 1e20
+                max_dual_value = -1e20
+            lbfgs = lbfgs_init(k, dp.n_pad, r, dtype, dev)
+            rankupd_cnt = config.rankupd_tol
+            if config.printlevel > 0:
+                print(f"rank doubled, new rank is {r}.")
+        else:
+            lbfgs = lbfgs_clear(lbfgs)
+
+        cur_ptol = max(cur_ptol, config.ptol)
+        cur_gtol = max(cur_gtol, _gtol_floor(config, dtype))
+
+        # checkpoint at the major boundary (outer.py:1377-1390)
+        if (config.checkpoint_path is not None
+                and majoriter % max(config.checkpoint_every, 1) == 0):
+            save_checkpoint(
+                config.checkpoint_path, R=R[:n].cpu().numpy(),
+                lam=lam.cpu().numpy(), sigma=sigma, r=r, majoriter=majoriter,
+                total_iter=total_iter)
+
+        # re-sync for the next major iteration (src/sdplr.jl:389)
+        L_val, vio_raw, G, y_full, grad_norm, vio_norm = fg()
+
+        if majoriter == config.maxmajoriter:
+            print("Warning: major iteration limit exceeded. Stop optimizing.")
+
+    # final re-sync and report (src/sdplr.jl:396-425)
+    L_val, vio_raw, G, y_full, grad_norm, vio_norm = fg()
+    maybe_print(-1, force=True)
+
+    totaltime = time.time() - starttime
+    t_dimacs = time.time()
+    if config.eval_DIMACS_errs:
+        DIMACS_errs = dimacs_errors(dp, R, lam, vio_raw, vio_raw[m], gen)
+    else:
+        DIMACS_errs = np.zeros(6)
+    dimacs_time = time.time() - t_dimacs
+
+    obj = float(vio_raw[m])
+    R_np = R[:n].cpu().numpy().astype(np.float64)
+    obj_feas = _feasible_obj(prob, dp, R_np, vio_raw.cpu().numpy())
+    rel_gap = _final_gap(obj if obj_feas is None else obj_feas,
+                         max_dual_value, max_dual_value > -1e19)
+    return {
+        "R": R_np,
+        "Rt": R_np.T,
+        "lambda": best_lam,
+        "lambda_last": lam.cpu().numpy().astype(np.float64),
+        "R0": R0_np,
+        "Rt0": R0_np.T,
+        "lambda0": lam0_np,
+        "sigma": sigma,
+        "grad_norm": grad_norm,
+        "primal_vio": vio_norm,
+        "obj": obj,
+        "max_dual_value": max_dual_value,
+        "min_duality_gap": min_duality_gap,
+        "rel_duality_gap": rel_gap,
+        "obj_feasible": obj_feas,
+        "duality_gap": duality_gap,
+        "totaltime": totaltime,
+        "dual_time": dual_time,
+        "dual_time_estimated": False,  # measured on the host's clock
+        "dual_passes": dual_passes,
+        "dual_lanczos_time": dual_time,
+        "primaltime": totaltime - dual_time,
+        "DIMACS_time": dimacs_time,
+        "iter": total_iter,
+        "majoriter": majoriter,
+        "dual_bounds_computed": dual_count,
+        "DIMACS_errs": np.asarray(DIMACS_errs),
+        "ptol": config.ptol,
+        "objtol": config.objtol,
+        "fprec": config.fprec,
+        "rankupd_tol": config.rankupd_tol,
+        "r": r,
+        "timed_out": timed_out,
+        "inner_engine": _engine_name(dp, mega_run_for(r) is not None),
         "dtype": str(dtype).replace("torch.", ""),
     }

@@ -504,3 +504,92 @@ def test_entry_step_graph_matches_the_eager_step(h100):
     # to 1.0001 × the norm it ended at
     c3 = both(t(np.zeros(dp.m)), t(10.0), 1.0001 * float(c1.grad_norm), 500)
     assert 0 < c3.steps <= 25
+
+
+# ---- the general engine (slice E) and the host-driven loop ---------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("idx", sorted(IDX))
+@pytest.mark.parametrize("w", [2 * r for r in (1, 10, 20, 40, 80, 160, 320,
+                                                425)] + [2 * 97, 3, 97])
+def test_gather_rows_at_the_general_paths_widths(h100, dtype, idx, w):
+    """gather_rows at the widths of the general engine's [R|D] gather: 2r
+    for every rank of the doubling schedule from r₀ = 10 to the
+    Barvinok–Pataki cap of C₁₀₀₀₀⁹'s m = 90,001 (425), and r = 1; odd
+    widths (2·97 = 194 makes 8-byte but not 16-byte rows in float32; 3 and
+    97 4-byte ones); int32 and int64 ids; exactly equal to X[idx]."""
+    g = torch.Generator().manual_seed(w)
+    X = torch.randn((3000, w), generator=g, dtype=DTYPES[dtype]).cuda()
+    i = torch.randint(0, 3000, (4099,), generator=g).to(IDX[idx]).cuda()
+    before = ga.ROWS.launches
+    got = ga.gather_rows(X, i)
+    torch.cuda.synchronize()
+    assert ga.ROWS.launches == before + 1
+    assert torch.equal(got, X[i.long()])
+
+
+def _general_theta(device, n=300):
+    A = problems.synthetic_cycle_power(n, 3)
+    C, As, b = problems.lovasz_theta(A)
+    cp = compile_problem(SDPProblem(C, As, np.asarray(b, float), None),
+                         entry=False)
+    return to_device(cp, torch.float64, device)
+
+
+@pytest.mark.cuda
+def test_general_operators_on_the_card_match_the_cpu(h100):
+    """The general A_linesearch ([R|D] through gather_rows) and apply_S
+    (the ELL SpMM through gather_rows) on the card against the CPU, in
+    float64, to 1e-12 of each result's largest entry; two gather_rows
+    launches."""
+    from sdplrplus_tpu_torch.ops import adjoint, forward
+
+    dps = {d: _general_theta(d) for d in ("cuda", "cpu")}
+    assert forward.is_general(dps["cpu"])
+    rng = np.random.default_rng(4)
+    n_pad, m = dps["cpu"].n_pad, dps["cpu"].m
+    R, D = rng.normal(size=(2, n_pad, 7))
+    y = rng.normal(size=m + 1)
+    out = {}
+    for d, dp in dps.items():
+        t = lambda x: torch.tensor(x, dtype=torch.float64, device=d)
+        before = ga.ROWS.launches
+        out[d] = forward.A_linesearch(dp, t(R), t(D)) + (
+            adjoint.apply_S(dp, t(y), t(R)),)
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert ga.ROWS.launches == before + 2
+    for a, b_ in zip(out["cuda"], out["cpu"]):
+        a = a.cpu().numpy()
+        b_ = b_.numpy()
+        assert np.max(np.abs(a - b_)) <= 1e-12 * np.max(np.abs(b_))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["maxcut", "lovasz_theta"])
+def test_host_driver_matches_the_fused_driver_on_the_card(h100, family):
+    """fused_outer=False against the fused driver on the card, float64
+    (tests/test_e2e.py:130): MaxCut on K1 and θ with entry_mode=False on
+    the general engine take the same iterations and major iterations and
+    agree in the objective to 1e-8."""
+    from sdplrplus_tpu_torch.solver.outer import ENGINE_GENERAL
+
+    theta = family == "lovasz_theta"
+    # the general path converges θ only on small graphs (ROADMAP F6)
+    A = problems.make_random_graph(10, 0.5, seed=7) if theta \
+        else problems.make_random_graph(60, 0.3, seed=7)
+    C, As, b = getattr(problems, family)(A)
+    kw = dict(ptol=1e-3, objtol=1e-3, prior_trace_bound=1.0 if theta
+              else 60.0, dtype="float64", seed=0, printlevel=0,
+              maxmajoriter=100)
+    if theta:
+        kw["entry_mode"] = False
+    k1 = mk.K1.launches
+    rf = sdplr(C, As, b, 4, **kw)
+    rh = sdplr(C, As, b, 4, fused_outer=False, **kw)
+    want = ENGINE_GENERAL if theta else ENGINE_KERNEL
+    assert rf["inner_engine"] == rh["inner_engine"] == want
+    assert (mk.K1.launches > k1) == (not theta)
+    assert rf["iter"] == rh["iter"] and rf["majoriter"] == rh["majoriter"]
+    assert abs(rf["obj"] - rh["obj"]) <= 1e-8 * max(1.0, abs(rh["obj"]))

@@ -29,7 +29,7 @@ from sdplrplus_tpu_torch.models import (
 from sdplrplus_tpu_torch.ops.device import to_device
 from sdplrplus_tpu_torch.problem import SDPProblem
 from sdplrplus_tpu_torch.solver import major, outer
-from sdplrplus_tpu_torch.solver.outer import ENGINE_ENTRY
+from sdplrplus_tpu_torch.solver.outer import ENGINE_ENTRY, ENGINE_GENERAL
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "exps"))
 
@@ -51,12 +51,15 @@ def _cycle(n, extra=0):
 def test_theta_of_the_five_cycle():
     """θ(C₅) = √5 to 1e-3 (tests/test_e2e.py:73). At n = 5 the trace
     constraint has 5 entries, under compile_problem's wide threshold of 8,
-    so C₅ alone compiles to the general engine, which is slice E's and
-    raises. θ is additive over disjoint unions and θ(K₁) = 1, so
-    C₅ plus four isolated vertices (n = 9, entry mode) must give √5 + 4."""
+    so C₅ alone compiles to the general engine. θ is additive over
+    disjoint unions and θ(K₁) = 1, so C₅ plus four isolated vertices
+    (n = 9, entry mode) must give √5 + 4."""
     C, As, b = lovasz_theta(_cycle(5))
-    with pytest.raises(NotImplementedError, match="slice E"):
-        sdplr(C, As, b, 3, prior_trace_bound=1.0, **CPU)
+    res = sdplr(C, As, b, 3, fprec=0.0, objtol=1e-5, ptol=1e-6,
+                prior_trace_bound=1.0, maxmajoriter=200, dtype="float64",
+                **CPU)
+    assert res["inner_engine"] == ENGINE_GENERAL
+    assert abs(-res["obj"] - np.sqrt(5.0)) < 1e-3
     C, As, b = lovasz_theta(_cycle(5, extra=4))
     res = sdplr(C, As, b, 3, fprec=0.0, objtol=1e-5, ptol=1e-6,
                 prior_trace_bound=1.0, maxmajoriter=200, dtype="float64",

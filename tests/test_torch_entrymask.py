@@ -178,12 +178,17 @@ def test_al_value_grad_on_the_general_path_matches_jax(gen):
 
 
 def test_general_inner_engine_still_raises_slice_e():
-    _, dp_t, _ = _pair(entry=False)
-    R = _t(_factor(dp_t, 2, 0))
-    for fn in (lambda: t_forward.A_uv(dp_t, R, R),
-               lambda: t_forward.A_linesearch(dp_t, R, R)):
-        with pytest.raises(NotImplementedError, match="slice E"):
-            fn()
+    """The general inner engine (ROADMAP slice E) is ported: A_uv and
+    A_linesearch on the same instance outside entry mode agree with the
+    JAX package's (tests/test_torch_general.py holds the rest)."""
+    dp_j, dp_t, _ = _pair(entry=False)
+    R, D = _factor(dp_t, 2, 0), _factor(dp_t, 2, 1)
+    _close(t_forward.A_uv(dp_t, _t(R), _t(D)),
+           j_forward.A_uv(dp_j, jnp.asarray(R), jnp.asarray(D)))
+    for got, want in zip(t_forward.A_linesearch(dp_t, _t(R), _t(D)),
+                         j_forward.A_linesearch(dp_j, jnp.asarray(R),
+                                                jnp.asarray(D))):
+        _close(got, want)
 
 
 # --------------------------------------------------------- entry operators

@@ -32,7 +32,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import sys, sdplrplus_tpu_torch, sdplrplus_tpu_torch.convert, "
         "sdplrplus_tpu_torch.ops.megakernel, sdplrplus_tpu_torch.solver.outer, "
         "sdplrplus_tpu_torch.solver.major, sdplrplus_tpu_torch.probes, "
-        "sdplrplus_tpu_torch.ops.gather, sdplrplus_tpu_torch.ops.blocklanczos\n"
+        "sdplrplus_tpu_torch.ops.gather, sdplrplus_tpu_torch.ops.blocklanczos, "
+        "sdplrplus_tpu_torch.adapter, sdplrplus_tpu_torch.utils.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'sdplrplus_tpu' "
         "or m.startswith('sdplrplus_tpu.'))\n"
@@ -116,23 +117,42 @@ def test_resolve_dtype_maps_to_torch_without_side_effects():
 
 
 def test_unported_options_name_their_slice():
+    """Only multi-device solving is still to be ported (ROADMAP slice G);
+    fused_outer=False, checkpoint_path and profile_dir run
+    (tests/test_torch_host.py)."""
     from sdplrplus_tpu_torch import sdplr
     from sdplrplus_tpu_torch.models import maxcut
     import scipy.sparse as sp
 
     C, As, b = maxcut(sp.csr_matrix(np.array([[0.0, 1.0], [1.0, 0.0]])))
-    for kw in ({"fused_outer": False}, {"checkpoint_path": "x"},
-               {"profile_dir": "x"}, {"devices": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sdplr(C, As, b, 1, printlevel=0, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP slice G"):
+        sdplr(C, As, b, 1, printlevel=0, device="cpu", devices=2)
 
 
 def test_off_diagonal_constraints_name_the_general_engine_slice():
     """Lovász θ without the entry-mask engine has off-diagonal constraint
-    entries: the general gather engine is not ported yet."""
+    entries: it runs on the general engine (ROADMAP slice E), and 100
+    iterations in float64 follow the JAX package's xla-general solve on
+    the same input and seed (the same iterations and major iterations, R
+    to 1e-9, the objective to 1e-10 relative; the dual bounds, from
+    different Lanczos start vectors, to 1e-2). The reference's general
+    path does not converge θ (ROADMAP F6), so the trajectory is held, not
+    convergence."""
+    from sdplrplus_tpu import sdplr as j_sdplr
+    from sdplrplus_tpu.models import problems as j_models
     from sdplrplus_tpu_torch import sdplr
     from sdplrplus_tpu_torch.models import lovasz_theta, make_random_graph
+    from sdplrplus_tpu_torch.solver.outer import ENGINE_GENERAL
 
-    C, As, b = lovasz_theta(make_random_graph(12, 0.5, seed=1))
-    with pytest.raises(NotImplementedError, match="slice E"):
-        sdplr(C, As, b, 2, printlevel=0, device="cpu", entry_mode=False)
+    A = make_random_graph(12, 0.5, seed=1)
+    kw = dict(printlevel=0, entry_mode=False, dtype="float64", maxiter=100,
+              prior_trace_bound=1.0)
+    ref = j_sdplr(*j_models.lovasz_theta(A), 2, **kw)
+    res = sdplr(*lovasz_theta(A), 2, device="cpu", **kw)
+    assert (ref["inner_engine"], res["inner_engine"]) == ("xla-general",
+                                                          ENGINE_GENERAL)
+    assert res["iter"] == ref["iter"] and res["majoriter"] == ref["majoriter"]
+    np.testing.assert_allclose(res["R"], ref["R"], rtol=1e-9, atol=1e-9)
+    assert abs(res["obj"] - ref["obj"]) <= 1e-10 * abs(ref["obj"])
+    assert abs(res["max_dual_value"] - ref["max_dual_value"]) \
+        <= 1e-2 * abs(ref["max_dual_value"])
