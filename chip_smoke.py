@@ -145,7 +145,33 @@ from the sources in the checkout and runs these phases, one line each:
               solve with checkpoint_path, the file loaded and a warm start
               from it (pinfeas ≤ 1e-2 in no more iterations); solve_model
               on a dense model of K₂ MaxCut (obj = −1 to 1e-6); profile_dir
-              writing one trace file.
+              writing one trace file;
+ 16. cli      the experiment CLI, sdplrplus_tpu_torch.exps.run.main(...) in
+              process with its warm-up, every launch count set to 0 just
+              before each timed solve: MaxCut, MinimumBisection and CutNorm
+              on --synthetic-n 800 --deg 24 (18,642 edges; CutNorm's lift
+              N = 1600) on K1 with no K2 launch, MuConductance (mu 0.1) on
+              K2 with no K1 launch, each with pinfeas and gap <= 1e-2 and
+              within 1e-2 of the JAX package's objective (its exps/run.py
+              on the CPU, float32); the rounding gates (MaxCut's best cut
+              between 0.87 |obj| and the certified bound, MinBisection's at
+              least its certified bound, both equal to the same rounding on
+              the CPU); the artifacts' keys (the JAX package's SHORT_KEYS
+              plus backend, device and power_limit; the _state.npz fields);
+              theta of C_72^2 = 24 through the CLI on entry-mask-torch;
+              exps.certify on the MaxCut artifact (no over-certification
+              against float64 eigsh, 2e-3); exps.sweep over MaxCut and
+              CutNorm in one process, both artifacts and summary lines;
+ 17. bench    sdplrplus_tpu_torch.bench.run_bench() on the G1-shaped
+              instance (K1's iteration rate as the slope between 100 and
+              100,000 steps by CUDA events, the warm time to 1e-2, the
+              timing asserts) as a [bench] line; exps.bench_micro at the
+              G1-shaped shape and at n = 20,000, deg 16, r = 10 and 20 (one
+              [micro] line per operator: the device µs per call from
+              torch.profiler's kernel times, the host-issue µs of the eager
+              calls, the bound and the share of it); exps.ab_dualtime
+              on the G1-shaped MaxCut in float64 (the fused and host drivers
+              take the same iterations; modelled and measured dual time).
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -212,9 +238,28 @@ THETA_CYCLE_MAXTIME = 90.0
 GENERAL_N, GENERAL_K = 10000, 9   # phase 14: C_n^k, theta = n/(k+1) = 1000
 GENERAL_MAXTIME = 45.0
 
-PEAK_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
-PEAK_FLOPS = {"float32": 67e12,       # non-tensor FP32
-              "float64": 34e12}       # non-tensor FP64
+# phase 16, the experiment CLI: the JAX package's exps/run.py on the CPU,
+# float32, on the same instance and flags,
+#   python exps/run.py --problem P --synthetic-n 800 --deg 24 \
+#       --dtype float32 --skip-warmup
+# (synthetic_graph(800, 24): 18,642 edges; CutNorm's lift has N = 1600):
+#   MaxCut            obj -12036.3779296875, pinfeas 8.00e-3, gap 3.33e-3,
+#                     170 iterations, dense-mxu, rounding 11277.0
+#   MinimumBisection  obj 6953.59326171875, pinfeas 5.73e-4, gap 9.45e-3,
+#                     298 iterations, dense-mxu, rounding 7653.0
+#   CutNorm           obj -37867.28515625, pinfeas 3.72e-3, gap 9.93e-6,
+#                     35 iterations, dense-mxu
+#   MuConductance     obj 0.7207241654396057, pinfeas 1.83e-3, gap 9.86e-3,
+#                     2407 iterations, rank 20, fast-diag-spmm
+# and LovaszTheta on --synthetic-kind cyclepow --synthetic-n 72 --deg 2
+# (theta = 24): obj -23.97467041015625, gap 1.82e-3, entry-mask.
+CLI_GRAPH = "SYN800d24"
+CLI_SYN = ["--synthetic-n", "800", "--deg", "24"]
+CLI_JAX_OBJ = {"MaxCut": -12036.3779296875,
+               "MinimumBisection": 6953.59326171875,
+               "CutNorm": -37867.28515625,
+               "MuConductance": 0.7207241654396057}
+
 RANK = 10
 K = 4                                  # SolverConfig.numlbfgsvecs
 
@@ -277,6 +322,8 @@ def device_profile(fn, nsteps):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from sdplrplus_tpu_torch.utils.timing import kernel_us
+
     fn(5)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -292,11 +339,7 @@ def device_profile(fn, nsteps):
         fn(nsteps)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    dev_us = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0) or 0
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us[ev.key] = us
+    dev_us = {k: us for k, (us, _) in kernel_us(prof).items()}
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     return (step_ms, wall_ms / nsteps, sum(dev_us.values()) / 1e3 / nsteps,
             [(k[:60], round(v / nsteps, 2)) for k, v in top])
@@ -849,6 +892,205 @@ def entry_points_phase(A, jax_obj, zero_counts, smi, dev="cuda"):
     return rh
 
 
+def cli_phase(zero_counts, smi, dev="cuda"):
+    """Phase 16: the experiment CLI (``exps.run.main``) in process, each
+    problem with its warm-up and every launch count set to 0 just before
+    the timed solve (``run_one`` wrapped to do so); the rounding gates;
+    the artifacts' keys; ``exps.certify`` on the MaxCut artifact; and
+    ``exps.sweep`` over MaxCut and CutNorm in one process. Artifacts are
+    written under ``sdplrplus_tpu_torch/_build/cli/`` and removed."""
+    import contextlib
+    import io as _io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sdplrplus_tpu_torch.exps import certify, run, sweep
+    from sdplrplus_tpu_torch.exps.common import SHORT_KEYS
+    from sdplrplus_tpu_torch.ops import megakernel as mk
+    from sdplrplus_tpu_torch.solver.outer import ENGINE_ENTRY, ENGINE_KERNEL
+    from sdplrplus_tpu_torch.utils.rounding import (
+        maxcut_rounding, minimum_bisection_rounding,
+    )
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "sdplrplus_tpu_torch", "_build", "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    real_run_one = run.run_one
+    launches = {}
+
+    def counted_run_one(args, graph, A, filename, *a, **k):
+        if "warmup" not in filename:
+            zero_counts()
+            t0 = time.time()
+            res = real_run_one(args, graph, A, filename, *a, **k)
+            torch.cuda.synchronize()
+            res["solve_s"] = time.time() - t0
+            launches[args.problem] = (mk.K1.launches, mk.K2.launches)
+            return res
+        return real_run_one(args, graph, A, filename, *a, **k)
+
+    state_keys = {"best_lam", "lam_last", "R", "obj", "obj_feasible",
+                  "max_dual_value", "rel_duality_gap", "trace_bound"}
+    name = torch.cuda.get_device_name(0)
+    lines = []
+    run.run_one = counted_run_one
+    try:
+        results = {}
+        for problem, jax_obj in CLI_JAX_OBJ.items():
+            argv = ["--problem", problem, "--graph", CLI_GRAPH, "--dtype",
+                    "float32", "--output", work, "--device", dev] + CLI_SYN
+            results[problem] = res = run.main(argv)
+            k1, k2 = launches[problem]
+            rel = abs(res["obj"] - jax_obj) / abs(jax_obj)
+            with open(res["artifact"]) as f:
+                short = json.load(f)
+            state = np.load(res["artifact"].replace(".json", "_state.npz"))
+            lines.append(
+                f"{problem}: engine {res['inner_engine']}, K1 {k1} K2 {k2} "
+                f"launches, obj {res['obj']!r} (|obj - JAX|/|JAX| "
+                f"{rel:.3e}), pinfeas {res['primal_vio']:.3e}, gap "
+                f"{res['rel_duality_gap']:.3e}, {res['iter']} iterations, "
+                f"rank {res['r']}, rounding {res['callback_res']!r}, solve "
+                f"{res['solve_s']:.3f} s")
+            assert res["inner_engine"] == ENGINE_KERNEL, (problem, res)
+            if problem == "MuConductance":
+                assert k2 > 0 and k1 == 0, (problem, k1, k2)
+            else:
+                assert k1 > 0 and k2 == 0, (problem, k1, k2)
+            assert res["primal_vio"] <= 1e-2, (problem, res["primal_vio"])
+            assert res["rel_duality_gap"] <= 1e-2, \
+                (problem, res["rel_duality_gap"])
+            assert rel <= 1e-2, (problem, res["obj"], jax_obj)
+            assert set(SHORT_KEYS) <= set(short), problem
+            assert short["backend"] == "cuda" and short["device"] == name
+            assert short["power_limit"] and short["power_limit"].endswith(
+                "W"), short["power_limit"]
+            assert set(state.files) == state_keys, state.files
+        A = run.load_graph(run.parse_args(CLI_SYN), CLI_GRAPH, "MaxCut")
+        rmc, rmb = results["MaxCut"], results["MinimumBisection"]
+        # the SDP bounds the cut: max cut <= -(certified dual bound) of the
+        # minimisation, min bisection >= its certified dual bound
+        assert 0.87 * abs(rmc["obj"]) <= rmc["callback_res"] \
+            <= -rmc["max_dual_value"], (rmc["callback_res"], rmc["obj"],
+                                        rmc["max_dual_value"])
+        assert rmb["callback_res"] >= rmb["max_dual_value"], \
+            (rmb["callback_res"], rmb["max_dual_value"])
+        cpu_mc = maxcut_rounding(A, rmc["R"], device="cpu")
+        cpu_mb = minimum_bisection_rounding(A, rmb["R"], device="cpu")
+        assert rmc["callback_res"] == cpu_mc, (rmc["callback_res"], cpu_mc)
+        assert rmb["callback_res"] == cpu_mb, (rmb["callback_res"], cpu_mb)
+        lines.append(f"rounding on the card = on the CPU: MaxCut {cpu_mc!r} "
+                     f"(<= -dual {-rmc['max_dual_value']:.3f}, >= 0.87 |obj|"
+                     f"), MinBisection {cpu_mb!r} (>= dual "
+                     f"{rmb['max_dual_value']:.3f})")
+
+        # θ of the cycle power C_72^2 = 24 on the entry-mask engine
+        rt = run.main(["--problem", "LovaszTheta", "--graph", "C72", "--dtype",
+                       "float32", "--output", work, "--device", dev,
+                       "--synthetic-kind", "cyclepow", "--synthetic-n", "72",
+                       "--deg", "2"])
+        lines.append(f"LovaszTheta C_72^2: engine {rt['inner_engine']}, "
+                     f"K1 {launches['LovaszTheta'][0]} K2 "
+                     f"{launches['LovaszTheta'][1]} launches, -obj "
+                     f"{-rt['obj']!r} (theta 24), gap "
+                     f"{rt['rel_duality_gap']:.3e}")
+        assert rt["inner_engine"] == ENGINE_ENTRY, rt["inner_engine"]
+        assert launches["LovaszTheta"] == (0, 0)
+        assert abs(-rt["obj"] - 24.0) <= 1e-2 * 24.0, rt["obj"]
+
+        # the float64 certificate of the MaxCut artifact on the host
+        with contextlib.redirect_stdout(_io.StringIO()):
+            cert = certify.main(["--problem", "MaxCut", "--graph",
+                                 CLI_GRAPH, "--artifact", rmc["artifact"]]
+                                + CLI_SYN)
+        lines.append(f"certify MaxCut: gap "
+                     f"{cert['solver_rel_duality_gap']:.4e}, float64 gap "
+                     f"{cert['rel_duality_gap_f64']:.4e} (lambda_min "
+                     f"{cert['lam_min_f64']:.4e})")
+        assert cert["solver_rel_duality_gap"] \
+            >= cert["rel_duality_gap_f64"] - 2e-3, cert
+
+        # the sweep: MaxCut and CutNorm in one process
+        sweep_out = os.path.join(work, "sweep")
+        buf = _io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = sweep.main(["--problems", "MaxCut", "CutNorm", "--output",
+                             sweep_out, "--device", dev] + CLI_SYN)
+        summary = [ln for ln in buf.getvalue().splitlines()
+                   if ln.startswith("[") and ("OK" in ln or "MISSED" in ln
+                                              or "FAIL" in ln)]
+        lines.append(f"sweep rc {rc}: {' | '.join(summary)}")
+        assert rc == 0, buf.getvalue()
+        for problem in ("MaxCut", "CutNorm"):
+            d = os.path.join(sweep_out, problem, f"SYN{CLI_SYN[1]}")
+            stem = "SDPLRTORCH-R-10-seed-0-tol-0.01"
+            assert os.path.exists(os.path.join(d, stem + ".json")), d
+            assert os.path.exists(os.path.join(d, stem + "_state.npz")), d
+            assert any(ln.startswith(f"[{problem}/") and ln.endswith("OK")
+                       for ln in summary), summary
+    finally:
+        run.run_one = real_run_one
+        shutil.rmtree(work, ignore_errors=True)
+    for ln in lines:
+        say("cli", ln)
+    say("cli", f"nvidia-smi: {smi}")
+    return results
+
+
+def bench_phase(smi, dev="cuda"):
+    """Phase 17: the port's benchmark on the G1-shaped instance
+    (``bench.run_bench``), the per-operator timer at the G1-shaped shape
+    and at n = 20,000 (r = 10 and 20), and the fused-versus-host dual-time
+    A/B in float64."""
+    import contextlib
+    import io as _io
+    import shutil
+
+    from sdplrplus_tpu_torch import bench
+    from sdplrplus_tpu_torch.exps import ab_dualtime, bench_micro
+    from sdplrplus_tpu_torch.solver.outer import ENGINE_KERNEL
+
+    g1 = bench.run_bench(device=dev)
+    say("bench", json.dumps(g1))
+    assert g1["inner_engine"] == ENGINE_KERNEL, g1["inner_engine"]
+    assert g1["device_al_iters_per_sec"] > 0
+    assert g1["primal_vio"] <= 1e-2 and g1["rel_duality_gap"] <= 1e-2
+    assert "dual_time_modelled_s" in g1, sorted(g1)
+    micro = {}
+    for shape in (["--synthetic-n", "800", "--deg", "24", "--rank", "10"],
+                  ["--synthetic-n", "20000", "--deg", "16", "--rank", "10"],
+                  ["--synthetic-n", "20000", "--deg", "16", "--rank", "20"]):
+        rows = bench_micro.main(shape + ["--device", dev])
+        micro[" ".join(shape)] = rows
+        assert rows and all(r["device_us"] > 0 and r["kernels_per_call"] > 0
+                            and r["issue_us"] > 0 for r in rows)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "sdplrplus_tpu_torch", "_build", "ab")
+    os.makedirs(work, exist_ok=True)
+    try:
+        with contextlib.redirect_stdout(_io.StringIO()):
+            ab = ab_dualtime.main(["--dtype", "float64", "--device", dev,
+                                   "--out", os.path.join(work, "ab.json")])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    f, h = ab["fused"], ab["host"]
+    say("ab", f"G1-shaped MaxCut float64, fused / host driver: iterations "
+        f"{f['iter']} / {h['iter']}, majors {f['majoriter']} / "
+        f"{h['majoriter']}, bounds {f['bounds']} / {h['bounds']}, dual "
+        f"passes {f['dual_passes']} / {h['dual_passes']}; dual time "
+        f"{f['dual_time']:.4f} s modelled / {h['dual_time']:.4f} s measured "
+        f"(share {f['dual_share']:.4f} / {h['dual_share']:.4f}, relative "
+        f"error {ab['model_vs_measured_dual_share_rel_err']}), totals "
+        f"{f['totaltime']:.3f} / {h['totaltime']:.3f} s, engines "
+        f"{f['inner_engine']} / {h['inner_engine']}; nvidia-smi: {smi}")
+    assert ab["trajectory_matched"], ab
+    assert f["dual_time_estimated"] and not h["dual_time_estimated"]
+    return g1, micro, ab
+
+
 def _k2_dense():
     """K₂ MaxCut as dense matrices: C = −L/4, A_i = e_i e_iᵀ, b = 1."""
     import numpy as np
@@ -885,6 +1127,7 @@ def main():
     from sdplrplus_tpu_torch.solver.inner import inner_chunk
     from sdplrplus_tpu_torch.solver.lbfgs import lbfgs_init
     from sdplrplus_tpu_torch.solver.outer import ENGINE_FAST, ENGINE_KERNEL
+    from sdplrplus_tpu_torch.utils import timing
 
     dev = torch.device("cuda")
 
@@ -1205,12 +1448,10 @@ def main():
                                       + 18 * n + 6 * rp * n * lrc)
     nbytes = 4 * (n * n + 2 * rp * n + 3 * n + 2 * 2 * K * rp * n
                   + 3 * n * lrc + n + 2 * rp * n)
-    bound_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S,
-                         ops / PEAK_FLOPS["float32"])
-    bound_by = "operations" if ops / PEAK_FLOPS["float32"] \
-        > nbytes / PEAK_BYTES_PER_S else "bytes"
+    bound_s, bound_by = timing.bound_s(nbytes, ops)
+    bound_ms = 1e3 * bound_s
     bound_us_iter = 1e6 * (2.0 * rp * n * n + (8 * K + 29) * rp * n
-                           + 18 * n) / PEAK_FLOPS["float32"]
+                           + 18 * n) / timing.PEAK_FLOPS["float32"]
 
     t0 = time.time()
     res2 = sdplr(C, As, b, RANK, **kw)
@@ -1530,11 +1771,9 @@ def main():
     ops2 = 2.0 * rp * n * n + iters * it_ops
     nbytes2 = 4 * (n * n + 2 * rp * n + 5 * J * n + n_w * n
                    + 2 * 2 * K * rp * n + 3 * n * lrc + 2 * rp * n)
-    bound2_ms = 1e3 * max(nbytes2 / PEAK_BYTES_PER_S,
-                          ops2 / PEAK_FLOPS["float32"])
-    bound2_by = "operations" if ops2 / PEAK_FLOPS["float32"] \
-        > nbytes2 / PEAK_BYTES_PER_S else "bytes"
-    bound2_us_iter = 1e6 * it_ops / PEAK_FLOPS["float32"]
+    bound2_s, bound2_by = timing.bound_s(nbytes2, ops2)
+    bound2_ms = 1e3 * bound2_s
+    bound2_us_iter = 1e6 * it_ops / timing.PEAK_FLOPS["float32"]
 
     t0 = time.time()
     res2 = sdplr(C2, As2, b2, RANK, **kw2)
@@ -1897,6 +2136,10 @@ def main():
     general_phase(GENERAL_N, GENERAL_K, GENERAL_MAXTIME, zero_counts, smi)
     entry_points_phase(g800, JAX_G1_OBJ, zero_counts, smi)
 
+    # ---- 16. the experiment CLI, sweep and certifier, 17. the benchmarks --
+    cli_phase(zero_counts, smi)
+    bench_phase(smi)
+
     def probe_row(kernel):
         return next(p for p in probe_rows if p["kernel"] == kernel)
 
@@ -1971,7 +2214,7 @@ def main():
         "bound_by": "bytes",
         "library_ms": probe_row("gather_lanes")["library_ms"],
     }]
-    say("total", f"phases 1-15 in {time.time() - t_start:.1f} s")
+    say("total", f"phases 1-17 in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -165,12 +165,18 @@ def resolve_dtype(config: SolverConfig) -> torch.dtype:
     return _DTYPES[name]
 
 
-def resolve_device(config: SolverConfig) -> torch.device:
-    """torch device of a solve; raises when CUDA is asked for and absent."""
-    dev = torch.device(config.device)
+def require_device(device, what: str = "SolverConfig.device") -> torch.device:
+    """``torch.device(device)``; raises when CUDA is asked for and absent
+    (no CPU fallback: the caller names the CPU itself)."""
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "SolverConfig.device is 'cuda' but no CUDA device is available; "
+            f"{what} is 'cuda' but no CUDA device is available; "
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def resolve_device(config: SolverConfig) -> torch.device:
+    """torch device of a solve; raises when CUDA is asked for and absent."""
+    return require_device(config.device)

@@ -356,3 +356,18 @@ def synthetic_cliques(n: int, s: int) -> sp.csr_matrix:
     rows = base + i_loc
     cols = base + j_loc
     return sp.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
+
+
+def synthetic_local_graph(n: int, deg: int, window: int,
+                          seed: int = 1) -> sp.csr_matrix:
+    """Seeded ring-local random graph (the JAX package's experiment-script
+    generator): each node draws ``deg`` neighbours within ±window. The
+    locality of road networks, meshes and BFS-reordered graphs; the
+    experiment CLI's ``--synthetic-kind local`` takes window = 4·deg."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), deg)
+    offs = rng.integers(1, window + 1, n * deg) * rng.choice(
+        [-1, 1], n * deg)
+    cols = (rows + offs) % n
+    A = sp.csr_matrix((np.ones(n * deg), (rows, cols)), shape=(n, n))
+    return A.maximum(A.T)

@@ -30,11 +30,11 @@ from .ops.gather import (
     gather_lanes, gather_lanes_plain, gather_rows, gather_rows_plain,
     gather_window, gather_window_plain,
 )
+from .utils.timing import PEAK_BYTES_PER_S
 
 N = 100_000          # rows of X in every probe
 T = 1 << 19          # rows gathered per call (probe5.py: 1 << 18)
 TT = 512             # probe_gather.py's one-hot tile
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 
 
 # ---- one function per Pallas probe kernel -----------------------------------

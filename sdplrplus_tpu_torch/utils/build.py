@@ -25,6 +25,7 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
+BUILD_ENV = "SDPLRPLUS_TORCH_BUILD"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,7 +34,7 @@ NVCC_FLAGS = (
 
 
 def build_dir() -> str:
-    d = os.environ.get("SDPLRPLUS_TORCH_BUILD", os.path.join(_PKG, "_build"))
+    d = os.environ.get(BUILD_ENV, os.path.join(_PKG, "_build"))
     os.makedirs(d, exist_ok=True)
     return d
 

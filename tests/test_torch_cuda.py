@@ -593,3 +593,59 @@ def test_host_driver_matches_the_fused_driver_on_the_card(h100, family):
     assert (mk.K1.launches > k1) == (not theta)
     assert rf["iter"] == rh["iter"] and rf["majoriter"] == rh["majoriter"]
     assert abs(rf["obj"] - rh["obj"]) <= 1e-8 * max(1.0, abs(rh["obj"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rounding_on_the_card_equals_the_cpu(h100, seed):
+    """Both roundings on the card and on the CPU from the same R and
+    hyperplanes: the same best cut (integer sums, exact in float64)."""
+    from sdplrplus_tpu_torch.utils.rounding import (
+        maxcut_rounding, minimum_bisection_rounding,
+    )
+
+    A = problems.make_random_graph(301, 0.7, seed=seed)
+    R = np.random.default_rng(seed).normal(size=(301, 10))
+    for fn in (maxcut_rounding, minimum_bisection_rounding):
+        assert fn(A, R, seed=seed) == fn(A, R, seed=seed, device="cpu")
+
+
+@pytest.mark.cuda
+def test_cli_on_the_card_writes_a_cuda_artifact(h100, tmp_path):
+    """The experiment CLI at n = 200 on the card (the default device):
+    K1 serves MaxCut, and the artifact names the card and its power
+    limit."""
+    import json
+
+    from sdplrplus_tpu_torch.exps import run
+
+    before = mk.K1.launches
+    res = run.main(["--problem", "MaxCut", "--synthetic-n", "200", "--deg",
+                    "8", "--graph", "SYN200", "--output", str(tmp_path)])
+    assert mk.K1.launches > before
+    assert res["inner_engine"] == ENGINE_KERNEL
+    with open(res["artifact"]) as f:
+        short = json.load(f)
+    assert short["backend"] == "cuda"
+    assert short["device"] == torch.cuda.get_device_name(0)
+    assert short["power_limit"].endswith("W")
+    assert short["primal_vio"] <= 1e-2 and short["rel_duality_gap"] <= 1e-2
+    assert (tmp_path / "MaxCut" / "SYN200"
+            / "SDPLRTORCH-R-10-seed-0-tol-0.01_state.npz").exists()
+
+
+@pytest.mark.cuda
+def test_bench_micro_reads_each_operators_device_time(h100):
+    """The per-operator timer on the card at n = 300: every row has the
+    kernels' device time from torch.profiler beside the host-issue time,
+    and its share of the bound is taken against the device time."""
+    from sdplrplus_tpu_torch.exps import bench_micro
+
+    rows = bench_micro.main(["--synthetic-n", "300", "--deg", "8",
+                             "--iters", "20"])
+    assert [r["op"] for r in rows][-1] == "lbfgs_direction"
+    for r in rows:
+        assert r["device_us"] > 0 and r["kernels_per_call"] >= 1
+        assert r["issue_us"] > 0
+        assert r["share_of_bound"] == r["bound_us"] / r["device_us"]
+        assert r["device"] == torch.cuda.get_device_name(0)

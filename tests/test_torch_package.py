@@ -33,7 +33,15 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "sdplrplus_tpu_torch.ops.megakernel, sdplrplus_tpu_torch.solver.outer, "
         "sdplrplus_tpu_torch.solver.major, sdplrplus_tpu_torch.probes, "
         "sdplrplus_tpu_torch.ops.gather, sdplrplus_tpu_torch.ops.blocklanczos, "
-        "sdplrplus_tpu_torch.adapter, sdplrplus_tpu_torch.utils.checkpoint\n"
+        "sdplrplus_tpu_torch.adapter, sdplrplus_tpu_torch.utils.checkpoint, "
+        "sdplrplus_tpu_torch.exps.run, sdplrplus_tpu_torch.exps.sweep, "
+        "sdplrplus_tpu_torch.exps.certify, "
+        "sdplrplus_tpu_torch.exps.bench_micro, "
+        "sdplrplus_tpu_torch.exps.ab_dualtime, sdplrplus_tpu_torch.bench, "
+        "sdplrplus_tpu_torch.utils.io, sdplrplus_tpu_torch.utils.writers, "
+        "sdplrplus_tpu_torch.utils.rounding, "
+        "sdplrplus_tpu_torch.utils.perfprofile, "
+        "sdplrplus_tpu_torch.utils.cache\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'sdplrplus_tpu' "
         "or m.startswith('sdplrplus_tpu.'))\n"
@@ -59,6 +67,10 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     assert any(s.endswith("megakernel_armijo.cu") for s in sources)
     assert any(s.endswith("gather.cu") for s in sources)
     assert any(s.endswith("probes.py") for s in sources)
+    for name in ("run.py", "sweep.py", "certify.py", "bench_micro.py",
+                 "ab_dualtime.py", "bench.py", "io.py", "writers.py",
+                 "rounding.py", "perfprofile.py", "cache.py"):
+        assert any(s.endswith(os.sep + name) for s in sources), name
     for path in sources:
         with open(path) as f:
             for i, line in enumerate(f, 1):
