@@ -172,11 +172,37 @@ from the sources in the checkout and runs these phases, one line each:
               calls, the bound and the share of it); exps.ab_dualtime
               on the G1-shaped MaxCut in float64 (the fused and host drivers
               take the same iterations; modelled and measured dual time).
+ 18. spmd     the sharded solve (parallel/), in subprocesses this script
+              starts and waits for (a worker's failure fails the phase):
+              (a) SYN20K at one NCCL rank through solve(..., mesh=
+              make_mesh(1, backend="nccl")), float32, ptol = objtol = 1e-2
+              as in phase 10, timed after a 200-iteration warm-up solve
+              in its process: inner_engine fast-diag-torch+spmd, the
+              objective within 1e-2 of the JAX package's, gap ≤ 1e-2 and
+              at least the float64 eigsh gap at its multiplier less 2e-3,
+              one gather_rows launch per ELL SpMM, its seconds and ms per
+              iteration beside phase 10's unsharded solve; (b) two ranks
+              sharing the card over gloo, every collective staged through
+              host memory: 25 float64 inner steps on SYN20K (the volume
+              rule picks the all-gather) and on synthetic_local_graph(
+              20000, 16, 312) (it picks the halo) equal the one-rank run
+              (steps, R to 1e-9, L and grad_norm to 1e-9 relative), each
+              rank's gather_rows launches equal to its ELL SpMMs (1 + 25),
+              the host-staged step time; where the machine has two cards
+              or more, (b) again over NCCL across the cards; (c) the study
+              scripts: exps.rank_mode_study on θ of C₇₂² (= 24) from
+              rank 2 in both rank-update modes (each doubles the rank),
+              and exps.diag_mucond on
+              synthetic_graph(800, 24) with --maxtime 10 (the three dual
+              bounds finite, the solver's least-squares bound at least the
+              AL-iterate one); and exps.scaling's comms words per pass at
+              n = 20,000 (--no-time).
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, and the script
 exits non-zero without that last line. It exits non-zero at once when no
-CUDA device is present or when the package is not beside it.
+CUDA device is present or when the package is not beside it. Phase 18's
+workers are this script, started as ``chip_smoke.py --spmd-worker ...``.
 """
 
 import json
@@ -1091,6 +1117,348 @@ def bench_phase(smi, dev="cuda"):
     return g1, micro, ab
 
 
+# ---- phase 18: the sharded solve --------------------------------------------
+
+SPMD_STEPS = 25                # phase 18 (b): inner steps per graph
+SPMD_TIMEOUT = 600             # seconds a phase-18 worker may run
+
+
+def _spmd_result(payload):
+    print("RESULT " + json.dumps(payload), flush=True)
+
+
+def _count_spmms(spmm_mod):
+    """Wrap spmm_ell to count the ELL SpMMs; returns (counter, restore)."""
+    real = spmm_mod.spmm_ell
+    n = [0]
+
+    def counted(*a, **k):
+        n[0] += 1
+        return real(*a, **k)
+
+    spmm_mod.spmm_ell = counted
+    return n, lambda: setattr(spmm_mod, "spmm_ell", real)
+
+
+def spmd_worker_one_rank(dev_type="cuda", n=20000):
+    """Phase 18 (a), one process: SYN20K (synthetic_graph(n, 16)) through
+    solve(..., mesh=...) at one NCCL rank after a 200-iteration warm-up
+    solve (the process is fresh; phase 10's solve is not), with its
+    launch counts and its float64 certificate (``dev_type`` "cpu": gloo,
+    for a rehearsal)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    import torch.distributed as dist
+    from scipy.sparse.linalg import eigsh
+
+    from sdplrplus_tpu_torch import SolverConfig
+    from sdplrplus_tpu_torch.models import maxcut, synthetic_graph
+    from sdplrplus_tpu_torch.ops import gather as ga
+    from sdplrplus_tpu_torch.ops import spmm as spmm_mod
+    from sdplrplus_tpu_torch.parallel.spmd import make_mesh
+    from sdplrplus_tpu_torch.problem import SDPProblem
+    from sdplrplus_tpu_torch.solver.outer import solve
+
+    A = synthetic_graph(n, 16)
+    C, As, b = maxcut(A)[:3]
+    prob = SDPProblem(C, As, np.asarray(b, np.float64), None)
+    mesh = make_mesh(1, backend="nccl" if dev_type == "cuda" else "gloo",
+                     device=dev_type)
+    cfg = SolverConfig(ptol=1e-2, objtol=1e-2, prior_trace_bound=float(n),
+                       dtype="float32", seed=0, printlevel=0,
+                       device=dev_type)
+    from sdplrplus_tpu_torch.parallel import comm
+
+    sync = torch.cuda.synchronize if dev_type == "cuda" else (lambda: None)
+    # objtol = inf: no bound at the iteration limit, no host polish and
+    # no reseeds, so the warm-up stays a few seconds
+    solve(prob, RANK, cfg.copy_with(maxiter=200, objtol=np.inf), mesh=mesh)
+    sync()
+    ga.ROWS.launches = 0
+    comm.CALLS.clear()
+    spmms, restore = _count_spmms(spmm_mod)
+    t0 = time.time()
+    res = solve(prob, RANK, cfg, mesh=mesh)
+    sync()
+    secs = time.time() - t0
+    restore()
+    calls = dict(comm.CALLS)
+    # the calls' own cost at world size 1: a 0-dim psum read on the host
+    # (as the loop reads its scalars) and an all-gather of the factor
+    x = torch.ones((), dtype=torch.float32, device=mesh.device)
+    X = torch.ones((prob.n + 96, RANK), dtype=torch.float32,
+                   device=mesh.device)
+    us = {}
+    for name, fn in (("psum", lambda: float(comm.psum(x, mesh))),
+                     ("all_gather_rows",
+                      lambda: comm.all_gather_rows(X, mesh)),
+                     ("plain_read", lambda: float(x + 1.0))):
+        for _ in range(20):
+            fn()
+        sync()
+        t1 = time.time()
+        for _ in range(500):
+            fn()
+        sync()
+        us[name] = (time.time() - t1) / 500 * 1e6
+    y_h = -np.asarray(res["lambda"], np.float64)
+    S64 = sp.csr_matrix((C.vals, (C.rows, C.cols)), shape=(n, n)) \
+        + sp.diags(y_h)
+    lam_min = float(eigsh(S64, k=1, which="SA", tol=1e-7)[0][0])
+    dual64 = float(-y_h @ np.asarray(b, np.float64)) + n * min(lam_min, 0.0)
+    obj_f = res["obj_feasible"] if res["obj_feasible"] is not None \
+        else res["obj"]
+    _spmd_result(dict(
+        obj=res["obj"], primal_vio=res["primal_vio"],
+        gap=res["rel_duality_gap"], gap64=(obj_f - dual64)
+        / min(abs(obj_f), abs(dual64)), iters=res["iter"],
+        rank=res["r"], devices=res["devices"],
+        inner_engine=res["inner_engine"], seconds=secs,
+        gather_rows=ga.ROWS.launches, spmms=spmms[0], backend=mesh.backend,
+        staged=mesh.staged, calls=calls, call_us=us))
+    dist.destroy_process_group()
+
+
+def spmd_worker_two_rank(rank, world, rdv, backend, dev_type="cuda",
+                         n=20000):
+    """Phase 18 (b), one rank: 25 float64 inner steps of the sharded loop
+    on SYN20K and on the ring-local graph (n rows), against the one-rank
+    run (on rank 0), with this rank's gather_rows launches and ELL
+    SpMMs (``dev_type`` "cpu" for a rehearsal)."""
+    import math
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sdplrplus_tpu_torch.compile import compile_problem
+    from sdplrplus_tpu_torch.models import (
+        maxcut, synthetic_graph, synthetic_local_graph)
+    from sdplrplus_tpu_torch.ops import gather as ga
+    from sdplrplus_tpu_torch.ops import spmm as spmm_mod
+    from sdplrplus_tpu_torch.ops.device import to_device
+    from sdplrplus_tpu_torch.parallel.comm import local_rows, n_loc
+    from sdplrplus_tpu_torch.parallel.shardmap import (
+        gather_inner, make_shardmap_inner, n_shards_pad, shardmap_problem)
+    from sdplrplus_tpu_torch.parallel.spmd import make_mesh
+    from sdplrplus_tpu_torch.problem import SDPProblem
+    from sdplrplus_tpu_torch.solver.al import al_value_grad
+    from sdplrplus_tpu_torch.solver.inner import inner_chunk
+    from sdplrplus_tpu_torch.solver.lbfgs import lbfgs_init
+
+    if dev_type == "cuda":
+        dev = torch.device("cuda", 0 if backend == "gloo" else rank)
+        torch.cuda.set_device(dev)
+        sync = torch.cuda.synchronize
+    else:
+        dev, sync = torch.device("cpu"), (lambda: None)
+    dist.init_process_group(backend, init_method=f"file://{rdv}",
+                            world_size=world, rank=rank)
+    mesh = make_mesh(world, device=dev)
+    f64 = torch.float64
+    out = {"backend": mesh.backend, "staged": mesh.staged, "rank": rank}
+    for name, A in (("SYN20K", synthetic_graph(n, 16)),
+                    ("LOCAL20K", synthetic_local_graph(n, 16, 312))):
+        C, As, b = maxcut(A)[:3]
+        pad = n_shards_pad(world)
+        cp = compile_problem(SDPProblem(C, As, np.asarray(b, float), None),
+                             n_shards=world, row_pad=pad, nnz_pad=pad,
+                             dense=False)
+        dp = to_device(cp, f64, dev)
+        rng = np.random.default_rng(0)
+        R0 = np.zeros((cp.n_pad, RANK))
+        R0[: cp.n] = rng.uniform(-1, 1, (cp.n, RANK))
+        R0 = torch.tensor(R0, dtype=f64, device=dev)
+        lam = torch.zeros(cp.m, dtype=f64, device=dev)
+        L, vio, G, y, gn, _ = al_value_grad(dp, R0, lam, 2.0,
+                                            gtol_relative=True,
+                                            ptol_relative=True)
+        args = (lam, 2.0, 0.0, -math.inf, SPMD_STEPS)
+        kw = dict(k=K, use_armijo=False, gtol_relative=True,
+                  ptol_relative=True)
+        dpl = shardmap_problem(cp, f64, mesh)
+        run = make_shardmap_inner(mesh, dpl, **kw)
+        ga.ROWS.launches = 0
+        spmms, restore = _count_spmms(spmm_mod)
+        sync()
+        t0 = time.time()
+        c, _ = run(dpl, local_rows(dpl, R0), local_rows(dpl, G), y, vio, L,
+                   gn, lbfgs_init(K, n_loc(dpl), RANK, f64, dev), *args)
+        sync()
+        secs = time.time() - t0
+        restore()
+        c = gather_inner(c, mesh)
+        row = dict(halo=dpl.halo_send is not None, halo_H=cp.halo_H,
+                   steps=c.steps, gather_rows=ga.ROWS.launches,
+                   spmms=spmms[0], ms_per_step=secs * 1e3 / max(c.steps, 1))
+        if rank == 0:
+            c1, _ = inner_chunk(dp, R0, G, y, vio, L, gn,
+                                lbfgs_init(K, cp.n_pad, RANK, f64, dev),
+                                *args, **kw)
+            row.update(
+                steps1=c1.steps,
+                max_dR=float((c.R - c1.R).abs().max()),
+                rel_dL=abs(float(c.L_val) - float(c1.L_val))
+                / max(1.0, abs(float(c1.L_val))),
+                rel_dgn=abs(float(c.grad_norm) - float(c1.grad_norm))
+                / max(1.0, abs(float(c1.grad_norm))))
+        out[name] = row
+    _spmd_result(out)
+    dist.destroy_process_group()
+
+
+def spmd_worker(argv):
+    """``one DEV N`` (phase 18 (a)) or ``two RANK WORLD RDV BACKEND DEV N``
+    (phase 18 (b))."""
+    if argv[0] == "one":
+        spmd_worker_one_rank(argv[1], int(argv[2]))
+    else:
+        spmd_worker_two_rank(int(argv[1]), int(argv[2]), argv[3], argv[4],
+                             argv[5], int(argv[6]))
+
+
+def _run_workers(cmds, label):
+    """Start the worker commands together, wait for all; a worker that
+    fails or outlives SPMD_TIMEOUT fails the phase. Returns each one's
+    RESULT payload."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--spmd-worker"] + c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SPMD_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{label}: worker exited {p.returncode}:\n"
+                               f"{log[-6000:]}")
+        line = [ln for ln in log.splitlines() if ln.startswith("RESULT ")]
+        assert line, f"{label}: no result:\n{log[-6000:]}"
+        out.append(json.loads(line[-1][len("RESULT "):]))
+    return out
+
+
+def spmd_phase(smi, syn_s, syn_iters, dev="cuda"):
+    """Phase 18: the sharded solve on the card (module docstring)."""
+    import math
+    import shutil
+
+    import torch
+
+    t_phase = time.time()
+    # (a) SYN20K at one NCCL rank
+    (a,) = _run_workers([["one", "cuda", "20000"]], "18 (a)")
+    rel = abs(a["obj"] - JAX_SYN20K_OBJ) / abs(JAX_SYN20K_OBJ)
+    ms_a = a["seconds"] * 1e3 / max(a["iters"], 1)
+    ms_1 = syn_s * 1e3 / max(syn_iters, 1)
+    say("spmd", f"(a) SYN20K at one NCCL rank ({a['backend']}, staged "
+        f"{a['staged']}): engine {a['inner_engine']}, devices "
+        f"{a['devices']}, obj {a['obj']!r}, pinfeas {a['primal_vio']:.3e}, "
+        f"gap {a['gap']:.3e} (float64 eigsh at its multiplier "
+        f"{a['gap64']:.3e}), |obj - JAX|/|JAX| {rel:.3e}, {a['iters']} "
+        f"iterations, rank {a['rank']}, gather_rows {a['gather_rows']} for "
+        f"{a['spmms']} ELL SpMMs; solve {a['seconds']:.3f} s = "
+        f"{ms_a:.4f} ms per iteration against phase 10's unsharded "
+        f"{syn_s:.3f} s = {ms_1:.4f} ms per iteration ({syn_iters} "
+        f"iterations; ratio {ms_a / ms_1:.3f}); collective calls "
+        f"{json.dumps(a['calls'])} = "
+        f"{sum(a['calls'].values()) / max(a['iters'], 1):.2f} per "
+        f"iteration; per call (host wall, world size 1): "
+        f"{json.dumps({k: round(v, 2) for k, v in a['call_us'].items()})}"
+        f" µs; nvidia-smi: {smi}")
+    assert a["inner_engine"] == "fast-diag-torch+spmd", a["inner_engine"]
+    assert a["devices"] == 1 and a["backend"] == "nccl" and not a["staged"]
+    assert rel <= 1e-2 and a["primal_vio"] <= 1e-2 and a["gap"] <= 1e-2, a
+    assert a["gap"] >= a["gap64"] - 2e-3, a
+    assert a["gather_rows"] == a["spmms"] > 0, a
+
+    # (b) two ranks on the card over gloo (host-staged); NCCL across cards
+    # where the machine has two
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "sdplrplus_tpu_torch", "_build", "spmd")
+    os.makedirs(build, exist_ok=True)
+    forms = [("gloo", "two ranks sharing the one card over gloo, host-staged")]
+    if torch.cuda.device_count() >= 2:
+        forms.append(("nccl", "two ranks over NCCL across two cards"))
+    else:
+        say("spmd", f"one card ({torch.cuda.device_count()}): (b) runs the "
+            f"one-card form (gloo, host-staged); NCCL across cards needs "
+            f"two")
+    for backend, what in forms:
+        rdv = os.path.join(build, f"rdv_{backend}_{time.time_ns()}")
+        outs = _run_workers([["two", str(r), "2", rdv, backend, "cuda",
+                              "20000"] for r in range(2)],
+                            f"18 (b) {backend}")
+        r0 = next(o for o in outs if o["rank"] == 0)
+        for name, want_halo in (("SYN20K", False), ("LOCAL20K", True)):
+            rows = [o[name] for o in outs]
+            ref = r0[name]
+            say("spmd", f"(b) {what}: {name} float64, {SPMD_STEPS} inner "
+                f"steps, layout {'halo' if ref['halo'] else 'all-gather'} "
+                f"(H = {ref['halo_H']}): steps {ref['steps']} (one rank "
+                f"{ref['steps1']}), max |ΔR| {ref['max_dR']:.3e}, rel ΔL "
+                f"{ref['rel_dL']:.3e}, rel Δgrad_norm {ref['rel_dgn']:.3e}; "
+                f"per rank gather_rows {[r['gather_rows'] for r in rows]} "
+                f"for ELL SpMMs {[r['spmms'] for r in rows]}; "
+                f"{'host-staged ' if outs[0]['staged'] else ''}step time "
+                f"{[round(r['ms_per_step'], 3) for r in rows]} ms per rank")
+            assert ref["halo"] is want_halo, (name, ref)
+            assert ref["steps"] == ref["steps1"] == SPMD_STEPS, ref
+            assert ref["max_dR"] <= 1e-9, ref
+            assert ref["rel_dL"] <= 1e-9 and ref["rel_dgn"] <= 1e-9, ref
+            for r in rows:
+                assert r["gather_rows"] == r["spmms"] == 1 + SPMD_STEPS, r
+        assert outs[0]["staged"] is (backend == "gloo"), outs[0]
+
+    # (c) the study scripts at small size
+    from sdplrplus_tpu_torch.exps import diag_mucond, rank_mode_study
+
+    study_dir = os.path.join(build, "studies")
+    t0 = time.time()
+    # from rank 2 both modes double the rank (at the default 10 neither
+    # does, and the two runs are one)
+    rows = rank_mode_study.main(["--graphs", "cyclepow:72:2", "--rank", "2",
+                                 "--output", study_dir, "--maxtime", "60"])
+    study_s = time.time() - t0
+    say("spmd", f"(c) rank_mode_study, theta of C_72^2 (= 24) from rank 2: "
+        f"{json.dumps(rows)} ({study_s:.1f} s)")
+    assert [r["mode"] for r in rows] == ["warm", "restart"], rows
+    for r in rows:
+        assert r["final_rank"] > 2, r
+        assert abs(-r["obj"] - 24.0) <= 24.0 * 1e-2, r
+        assert r["primal_vio"] <= 1e-2 and r["inner_engine"] == \
+            "entry-mask-torch", r
+    t0 = time.time()
+    dm = diag_mucond.main(["--synthetic-n", "800", "--deg", "24",
+                           "--maxtime", "10", "--device", dev])
+    say("spmd", f"(c) diag_mucond, mu-conductance on synthetic_graph(800, "
+        f"24), --maxtime 10: {json.dumps(dm)} ({time.time() - t0:.1f} s)")
+    for tag in ("a", "b", "c"):
+        assert math.isfinite(dm[f"dual_{tag}"]), dm
+    slack = 1e-4 * max(1.0, abs(dm["dual_a"]))   # float32 rounding
+    assert dm["dual_b"] >= dm["dual_a"] - slack, dm
+
+    # the comms words per pass of the two layouts at n = 20,000
+    from sdplrplus_tpu_torch.exps import scaling
+
+    sc = scaling.main(["--no-time", "--out",
+                       os.path.join(build, "scaling.json")])
+    words = {f"{r['kind']}/{r['layout']}/nd={r['nd']}":
+             r["comms_words_per_pass_per_device"] for r in sc["rows"]}
+    say("spmd", f"exps.scaling --no-time (n = 20,000, deg 16, r = 10): "
+        f"words received per rank per operator pass {json.dumps(words)}")
+    shutil.rmtree(build, ignore_errors=True)
+    say("spmd", f"phase 18 in {time.time() - t_phase:.1f} s")
+
+
 def _k2_dense():
     """K₂ MaxCut as dense matrices: C = −L/4, A_i = e_i e_iᵀ, b = 1."""
     import numpy as np
@@ -1100,6 +1468,9 @@ def _k2_dense():
 
 
 def main():
+    if sys.argv[1:2] == ["--spmd-worker"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return spmd_worker(sys.argv[2:])
     t_start = time.time()
     import torch
 
@@ -2140,6 +2511,9 @@ def main():
     cli_phase(zero_counts, smi)
     bench_phase(smi)
 
+    # ---- 18. the sharded solve --------------------------------------------
+    spmd_phase(smi, syn_s, res3["iter"])
+
     def probe_row(kernel):
         return next(p for p in probe_rows if p["kernel"] == kernel)
 
@@ -2214,7 +2588,7 @@ def main():
         "bound_by": "bytes",
         "library_ms": probe_row("gather_lanes")["library_ms"],
     }]
-    say("total", f"phases 1-17 in {time.time() - t_start:.1f} s")
+    say("total", f"phases 1-18 in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,9 @@ hand-written CUDA kernel: K1 for equality problems and K2 for the
 inequality families (ops/megakernel.py, csrc/megakernel.cu,
 csrc/megakernel_armijo.cu). The entry points (``sdplr``, ``solve``,
 ``solve_model`` for an external model of ``adapter.py``) run on the card
-unless the caller passes ``device="cpu"``. This package imports neither
-JAX nor ``sdplrplus_tpu``.
+unless the caller passes ``device="cpu"``; ``devices=N`` row-shards a
+solve over N torch.distributed ranks (``parallel/``). This package
+imports neither JAX nor ``sdplrplus_tpu``.
 """
 
 from .config import SolverConfig

@@ -50,6 +50,7 @@ class CustomModel:
     diag_identity: bool = False
     lowrank: tuple = ()
     wide_gids: tuple = ()
+    spmd: None = None          # an external model runs on one device
 
     @property
     def dtype(self) -> torch.dtype:

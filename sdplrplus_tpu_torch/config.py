@@ -116,11 +116,14 @@ class SolverConfig:
     lanczos_block: int = 0
     # checkpoint at major boundaries (.npz, utils/checkpoint.py; the
     # host-driven loop honours checkpoint_every); profile_dir records the
-    # solve with torch.profiler as a Chrome trace. Multi-device runs are
-    # a later slice of the port: devices > 1 raises NotImplementedError.
+    # solve with torch.profiler as a Chrome trace.
     checkpoint_path: Optional[str] = None
     checkpoint_every: int = 1     # major iterations between checkpoints
     profile_dir: Optional[str] = None
+    # ranks to row-shard the solve over (parallel/): with a process group
+    # initialized, its world size (every rank calls the solver); else this
+    # many workers are started, one card each under NCCL on "cuda" (at
+    # most the machine's cards) or gloo processes on "cpu"
     devices: int = 1
     # torch device of the solve: "cuda" (default; raises when no CUDA
     # device is present) or "cpu" (the tests' path, kernels' plain

@@ -66,8 +66,9 @@ def parse_args(argv=None):
     p.add_argument("--deg", type=int, default=16,
                    help="average degree of the synthetic graph")
     p.add_argument("--devices", type=int, default=1,
-                   help="devices to solve on; more than 1 is not ported "
-                        "yet and raises NotImplementedError")
+                   help="ranks to row-shard the solve over: one card "
+                        "each under NCCL on cuda, gloo processes on the "
+                        "cpu (workers are started for the solve)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the solve and the rounding: "
                         "cuda (default; fails without a card) or cpu")
@@ -144,13 +145,16 @@ def problem_spec(problem: str, mu: float, device):
 
 
 def run_one(args, graph: str, A, filename: str, ptol: float, objtol: float,
-            printlevel: int = 1) -> dict:
+            printlevel: int = 1, **solver_kw) -> dict:
     """One solve of ``args.problem`` on ``A`` through ``sdplr`` on
     ``args.device``, its rounding, and its artifacts
     ``<output>/<problem>/<graph>/<filename>.json`` (and ``_state.npz``
     unless a warm-up); the result carries the JSON's path as
-    ``artifact``."""
+    ``artifact``. ``solver_kw`` go to ``sdplr`` as they are (e.g.
+    ``rank_update_mode``). Under a process group only its coordinator
+    writes the artifacts and prints."""
     from .. import sdplr
+    from ..parallel.multihost import is_coordinator
 
     builder, callback, tb = problem_spec(args.problem, args.mu, args.device)
     n = A.shape[0]
@@ -170,14 +174,18 @@ def run_one(args, graph: str, A, filename: str, ptol: float, objtol: float,
         devices=args.devices,
         device=args.device,
         printlevel=printlevel,
+        **solver_kw,
     )
     res["callback_res"] = callback(A, res["R"])
     short = short_result(res, problem=args.problem, graph=graph, n=n,
                          seed=args.seed, maxtime=args.maxtime,
                          device=args.device)
     outdir = os.path.join(args.output, args.problem, graph)
-    os.makedirs(outdir, exist_ok=True)
     path = os.path.join(outdir, filename + ".json")
+    if not is_coordinator():    # every rank of a process group runs this
+        res["artifact"] = path
+        return res
+    os.makedirs(outdir, exist_ok=True)
     with open(path, "w") as f:
         json.dump(short, f, indent=4, default=float)
     if "warmup" not in filename:

@@ -54,7 +54,9 @@ def parse_args(argv=None):
     p.add_argument("--synthetic-kind", type=str, default="random",
                    choices=["random", "local", "cyclepow", "cliques"])
     p.add_argument("--deg", type=int, default=16)
-    p.add_argument("--devices", type=int, default=1)
+    p.add_argument("--devices", type=int, default=1,
+                   help="ranks to row-shard each solve over (see "
+                        "exps.run --devices)")
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
     if args.graphs is None:

@@ -15,15 +15,21 @@ those of S looked up through ``ell_tri`` / ``ell2_tri`` (the general
 
 An external model (``adapter.CustomModel``) supplies its own
 ``fn_apply_S``; ``apply_S`` and ``gradient`` dispatch to it first.
+
+On a rank-local problem X and the result are this rank's row blocks; the
+low-rank products BᵀX are summed across ranks and the general SpMM reads
+the row support (ops/spmm.support), as under the JAX package's
+shard_map.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.comm import dp_psum
 from .device import DeviceProblem
 from .forward import _C_times, is_general
-from .spmm import spmm_ell
+from .spmm import spmm_ell, support, tier2_offset
 
 
 def diag_weights(dp: DeviceProblem, y_full: torch.Tensor) -> torch.Tensor:
@@ -65,7 +71,8 @@ def s_tri_for(dp: DeviceProblem, y_full: torch.Tensor):
 
 def _apply_lowrank(dp: DeviceProblem, y_full, X, out):
     for t in dp.lowrank:
-        out = out + y_full[t.gid] * (t.B @ (t.d[:, None] * (t.B.T @ X)))
+        BtX = dp_psum(t.B.T @ X, dp)
+        out = out + y_full[t.gid] * (t.B @ (t.d[:, None] * BtX))
     return out
 
 
@@ -88,11 +95,13 @@ def apply_S_general(dp: DeviceProblem, y_full: torch.Tensor, X: torch.Tensor,
     when not given) through one ELL SpMM, plus the low-rank terms."""
     if s_tri is None:
         s_tri = assemble_s_tri(dp, y_full)
+    Xs = support(dp, X)
     if dp.has_ell2:
-        out = spmm_ell(X, dp.ell_cols, s_tri[dp.ell_tri], dp.ell2_rows,
-                       dp.ell2_cols, s_tri[dp.ell2_tri], ids=dp.ell_ids)
+        out = spmm_ell(Xs, dp.ell_cols, s_tri[dp.ell_tri], dp.ell2_rows,
+                       dp.ell2_cols, s_tri[dp.ell2_tri], ids=dp.ell_ids,
+                       offset=tier2_offset(dp))
     else:
-        out = spmm_ell(X, dp.ell_cols, s_tri[dp.ell_tri],
+        out = spmm_ell(Xs, dp.ell_cols, s_tri[dp.ell_tri],
                        ids=dp.ell_ids[:dp.ell_cols.numel()])
     return _apply_lowrank(dp, y_full, X, out)
 

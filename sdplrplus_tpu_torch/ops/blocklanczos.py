@@ -40,6 +40,11 @@ Differences from the JAX package, by design:
     goes on; it stops on breakdown only when the whole block vanishes
     (an invariant subspace), when no room is left for another block, or
     on a non-finite step, as the JAX package does.
+
+On a rank-local problem the blocks are row-sharded: every Gram matrix
+and projection coefficient is summed across ranks, and each rank draws
+the whole random block and keeps its rows (JAX package:
+ops/blocklanczos.py:84-85), so every world size runs the same recurrence.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import math
 import numpy as np
 import torch
 
+from ..parallel.comm import dp_full, dp_psum, local_rows
 from .adjoint import apply_S, s_tri_for
 from .device import DeviceProblem
 from .lanczos import _row_mask
@@ -82,7 +88,8 @@ def _seed_block(dp: DeviceProblem, generator, R, b: int, dtype,
     fresh normal lanes after them. Row-masked, not yet orthonormal (the
     caller CholQR-orthonormalizes). ``draws`` = (V_full (n_pad, b),
     G (r, b1)) hands in the random numbers, so tests can give both
-    packages the same; else both come from ``generator``."""
+    packages the same; else both come from ``generator``. A rank keeps
+    its rows of V."""
     dev = dp.device
     r = R.shape[1] if R is not None else 0
     b1 = min(r, max(b - 4, 1))
@@ -93,16 +100,16 @@ def _seed_block(dp: DeviceProblem, generator, R, b: int, dtype,
         V = torch.as_tensor(np.array(draws[0]), dtype=dtype, device=dev)
         G = (torch.as_tensor(np.array(draws[1]), dtype=dtype, device=dev)
              if r > 0 else None)
-    V = V.clone()
+    V = local_rows(dp, V).clone()
     if r > 0:
         sk = R @ G
-        nrm = torch.sqrt(torch.clamp(torch.sum(sk * sk, dim=0),
+        nrm = torch.sqrt(torch.clamp(dp_psum(torch.sum(sk * sk, dim=0), dp),
                                      min=torch.finfo(dtype).tiny))
         V[:, :b1] = sk / nrm
     return V * _row_mask(dp, dtype)
 
 
-def _cholqr(W, eps_scale):
+def _cholqr(W, eps_scale, dp=None):
     """Column-scaled CholQR: W = Q·B with Q orthonormal and B upper
     triangular. Returns (Q, B, fail); ``fail`` flags a block whose columns
     are dependent (relative to the largest) or that vanished altogether.
@@ -113,10 +120,11 @@ def _cholqr(W, eps_scale):
     their normalizer is clamped, so they show up as dependence instead of
     being boosted into fake directions. A Cholesky that breaks down
     (``cholesky_ex`` info > 0, where ``jnp.linalg.cholesky`` returns NaN)
-    is a failure with B = 0. On failure Q is unused."""
+    is a failure with B = 0. On failure Q is unused. W may be a
+    rank-local row block of ``dp``'s (the Gram is then summed)."""
     dtype = W.dtype
     eps_scale = torch.as_tensor(eps_scale, dtype=dtype, device=W.device)
-    G = W.T @ W
+    G = dp_psum(W.T @ W, dp)
     b = G.shape[0]
     eps = torch.finfo(dtype).eps
     eye = torch.eye(b, dtype=dtype, device=W.device)
@@ -182,7 +190,7 @@ def _np64(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float64)
 
 
-def _deflate(W, hist_j, scale, generator, row_mask):
+def _deflate(dp, W, hist_j, scale, generator, row_mask):
     """Orthonormalize a block whose columns CholQR found dependent: keep
     the directions of W's column-normalized Gram above CholQR's rank
     threshold, replace the rest with fresh normal directions orthogonal to
@@ -193,7 +201,7 @@ def _deflate(W, hist_j, scale, generator, row_mask):
     dtype, dev = W.dtype, W.device
     b = W.shape[1]
     eps = float(torch.finfo(dtype).eps)
-    G = _np64(W.T @ W)
+    G = _np64(dp_psum(W.T @ W, dp))
     d = np.sqrt(np.maximum(np.diagonal(G), 0.0))
     dmax = float(np.max(d))
     ds = np.maximum(d, max(1024.0 * eps * dmax, eps * (scale + 1.0)))
@@ -212,17 +220,18 @@ def _deflate(W, hist_j, scale, generator, row_mask):
     t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
     Qk = (W / t(ds)[None, :]) @ t(Uk / np.sqrt(sk)[None, :])
     Bk = t(np.sqrt(sk)[:, None] * Uk.T * ds[None, :])
-    Qk, Bf, f = _cholqr(Qk, 1.0)          # restore orthonormality
+    Qk, Bf, f = _cholqr(Qk, 1.0, dp)      # restore orthonormality
     if bool(f):
         return None, None, 0.0, False
     Bk = Bf @ Bk
-    Z = _draw(generator, (W.shape[0], b - nk), dtype, dev) * row_mask
+    Z = local_rows(dp, _draw(generator, (dp.n_pad, b - nk), dtype, dev))
+    Z = Z * row_mask
     for _ in range(2):
-        Z = Z - torch.einsum("knb,kbc->nc", hist_j,
-                             torch.einsum("knb,nc->kbc", hist_j, Z))
-        Z = Z - Qk @ (Qk.T @ Z)
-    Zq, _, f1 = _cholqr(Z, 1.0)
-    Zq, _, f2 = _cholqr(Zq, 1.0)
+        Z = Z - torch.einsum("knb,kbc->nc", hist_j, dp_psum(
+            torch.einsum("knb,nc->kbc", hist_j, Z), dp))
+        Z = Z - Qk @ dp_psum(Qk.T @ Z, dp)
+    Zq, _, f1 = _cholqr(Z, 1.0, dp)
+    Zq, _, f2 = _cholqr(Zq, 1.0, dp)
     if bool(f1 | f2):
         return None, None, 0.0, False
     Q = torch.cat([Qk, Zq], dim=1)
@@ -253,8 +262,8 @@ def block_lanczos_min_eig(dp: DeviceProblem, y_full, generator, R,
     one = torch.ones((), dtype=dtype, device=dev)
 
     V0 = _seed_block(dp, generator, R, b, dtype, seed_draws)
-    V0, _, _ = _cholqr(V0, one)
-    V0, _, _ = _cholqr(V0, one)  # CholQR2
+    V0, _, _ = _cholqr(V0, one, dp)
+    V0, _, _ = _cholqr(V0, one, dp)  # CholQR2
     n_loc = V0.shape[0]
     mask = _row_mask(dp, dtype)
 
@@ -270,22 +279,23 @@ def block_lanczos_min_eig(dp: DeviceProblem, y_full, generator, R,
     j = 0
     while j < k_max:
         hist[j] = V
-        W = S_dense @ V if S_dense is not None \
+        W = S_dense @ dp_full(dp, V) if S_dense is not None \
             else apply_S(dp, y_full, V, s_tri)
         W = W - V_prev @ B_prev.T
-        A_j = V.T @ W
+        A_j = dp_psum(V.T @ W, dp)
         A_j = 0.5 * (A_j + A_j.T)
         W = W - V @ A_j
         # full two-pass reorthogonalization against the stored basis
         Hm = hist[:j + 1]
         for _ in range(2):
-            W = W - torch.einsum("knb,kbc->nc", Hm,
-                                 torch.einsum("knb,nc->kbc", Hm, W))
-        scale = torch.sqrt(torch.clamp(torch.sum(V * V), min=1.0))
+            W = W - torch.einsum("knb,kbc->nc", Hm, dp_psum(
+                torch.einsum("knb,nc->kbc", Hm, W), dp))
+        scale = torch.sqrt(torch.clamp(dp_psum(torch.sum(V * V), dp),
+                                       min=1.0))
         # CholQR2: the second pass squares the first's loss of
         # orthogonality away. Composite factor: W = Q·(B2·B1)
-        Q1, B1, f1 = _cholqr(W, scale)
-        Q, B2, f2 = _cholqr(Q1, one)
+        Q1, B1, f1 = _cholqr(W, scale, dp)
+        Q, B2, f2 = _cholqr(Q1, one, dp)
         B_j = B2 @ B1
         san = bool(torch.all(torch.isfinite(A_j))
                    & torch.all(torch.isfinite(B_j)))
@@ -294,10 +304,11 @@ def block_lanczos_min_eig(dp: DeviceProblem, y_full, generator, R,
             # partial breakdown: deflate unless the block vanished as a
             # whole (invariant subspace) or no room is left for a block
             eps = torch.finfo(dtype).eps
-            vanished = not bool(torch.max(torch.sqrt(torch.sum(W * W, 0)))
+            colsq = dp_psum(torch.sum(W * W, 0), dp)
+            vanished = not bool(torch.max(torch.sqrt(colsq))
                                 > eps * (scale + 1.0))
             if not vanished and (j + 2) * b <= dp.n:
-                Qd, Bd, dropped, ok = _deflate(W, Hm, float(scale),
+                Qd, Bd, dropped, ok = _deflate(dp, W, Hm, float(scale),
                                                generator, mask)
                 if ok:
                     Q, B_j, fail = Qd, Bd, False

@@ -4,12 +4,18 @@ Counterpart of the JAX package's ``ops/device.py``. Array fields are
 tensors on one explicit ``device``; dimensions and layout metadata are
 plain Python values. The field names and meanings are those of the JAX
 ``DeviceProblem``, so state carries across (``convert.py``).
+
+A sharded solve gives each rank its own DeviceProblem
+(``local_problem``): the row-blocked arrays hold this rank's rows, the
+nnz arrays its block of the pattern, the rest is replicated, and
+``spmd`` names the mesh (parallel/comm.py), as the JAX package's
+``spmd_axis`` names its mesh axis. Dimensions stay global.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +105,9 @@ class DeviceProblem:
     # the general forward operator's one row gather: the aggregate
     # pattern's rows, then its columns (2·P_pad,) (ops/forward.py)
     uv_ids: _T = None
+    # halo-exchange SpMM (ops/spmm.support): this rank's send row lists
+    # (nd-1, H), local row ids; set only when the halo layout is in use
+    halo_send: _T = None
 
     # -- static metadata -----------------------------------------------------
     n: int = 0
@@ -124,6 +133,9 @@ class DeviceProblem:
     entry_trace_cert: bool = False
     trC_n: float = 0.0
     entry_mix_c: float = 0.0
+    # the mesh of a rank-local problem (parallel/comm.Mesh); None on one
+    # device, where every collective hook is the identity
+    spmd: Any = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -192,14 +204,8 @@ def device_problem(arrays: dict, lowrank, statics: dict, dtype,
     return DeviceProblem(lowrank=lr, **kw, **statics)
 
 
-def to_device(cp: CompiledProblem, dtype, device="cpu") -> DeviceProblem:
-    """Push a CompiledProblem to ``device`` in ``dtype`` (lam_ub / vio_lb
-    carry ±inf, representable in both float types)."""
-    device = torch.device(device)
-    arrays = {f: getattr(cp, f, None) for f in FLOAT_FIELDS + INT_FIELDS}
-    if arrays["wide_diag_w"] is None:
-        arrays["wide_diag_w"] = np.zeros((0, cp.n_pad))
-    statics = dict(
+def _statics(cp: CompiledProblem) -> dict:
+    return dict(
         n=cp.n, m=cp.m, n_pad=cp.n_pad, P_pad=cp.P_pad,
         ell_width=cp.ell_width, con_width=cp.con_width,
         pos_width=cp.pos_width, diag_width=cp.diag_width,
@@ -215,5 +221,64 @@ def to_device(cp: CompiledProblem, dtype, device="cpu") -> DeviceProblem:
         entry_trace_cert=bool(cp.entry_trace_cert), trC_n=float(cp.trC_n),
         entry_mix_c=float(cp.entry_mix_c),
     )
+
+
+def _arrays(cp: CompiledProblem) -> dict:
+    arrays = {f: getattr(cp, f, None) for f in FLOAT_FIELDS + INT_FIELDS}
+    if arrays["wide_diag_w"] is None:
+        arrays["wide_diag_w"] = np.zeros((0, cp.n_pad))
+    return arrays
+
+
+def to_device(cp: CompiledProblem, dtype, device="cpu") -> DeviceProblem:
+    """Push a CompiledProblem to ``device`` in ``dtype`` (lam_ub / vio_lb
+    carry ±inf, representable in both float types)."""
     lowrank = [(t.B, t.d, t.gid) for t in cp.lowrank]
-    return device_problem(arrays, lowrank, statics, dtype, device)
+    return device_problem(_arrays(cp), lowrank, _statics(cp), dtype,
+                          torch.device(device))
+
+
+# The JAX package's PartitionSpecs (parallel/shardmap.py:99-177), by field:
+# row-blocked (first axis over the n_pad rows, or over tier 2's per-shard
+# groups), column-blocked (second axis over the rows) and nnz-blocked
+# (over the aggregate pattern); every other array is replicated.
+ROW_FIELDS = (
+    "cell_val", "cell2_val", "diag_cid", "diag_w", "ell_cols", "ell_tri",
+    "ell2_rows", "ell2_cols", "ell2_tri", "C_dense", "ew_c2", "ew_v1",
+    "ew_h", "ew_C",
+)
+COL_FIELDS = ("wide_val_two", "extra_wide_w", "wide_diag_w")
+NNZ_FIELDS = ("agg_rows", "agg_cols", "c_val_two")
+
+
+def _block(x: np.ndarray, axis: int, rank: int, size: int) -> np.ndarray:
+    n = x.shape[axis] // size
+    return np.take(x, np.arange(rank * n, (rank + 1) * n), axis=axis)
+
+
+def local_problem(cp: CompiledProblem, dtype, mesh,
+                  halo: bool = False) -> DeviceProblem:
+    """This rank's DeviceProblem of a compile made with
+    ``n_shards = mesh.size``: its block of every row-, column- and
+    nnz-blocked array, the replicated rest, ``spmd`` = mesh. With
+    ``halo`` the ELL columns are the compile's remapped ones, which
+    address [X_local; halo] (ops/spmm.support), and ``halo_send`` holds
+    this rank's send lists; ``ell_ids`` is built from the local columns
+    either way, ``uv_ids`` from the local pattern block."""
+    nd, rank = mesh.size, mesh.rank
+    arrays = _arrays(cp)
+    if halo:
+        arrays["ell_cols"] = cp.halo_ell_cols
+        arrays["ell2_cols"] = cp.halo_ell2_cols
+    for f, axis in ([(f, 0) for f in ROW_FIELDS + NNZ_FIELDS]
+                    + [(f, 1) for f in COL_FIELDS]):
+        v = arrays.get(f)
+        if v is not None and np.asarray(v).ndim > axis:
+            arrays[f] = _block(np.asarray(v), axis, rank, nd)
+    lowrank = [(_block(np.asarray(t.B), 0, rank, nd), t.d, t.gid)
+               for t in cp.lowrank]
+    dp = device_problem(arrays, lowrank, _statics(cp), dtype, mesh.device)
+    hs = None
+    if halo:
+        hs = _tensor(cp.halo_send[rank], torch.int64, mesh.device)
+    return dataclasses.replace(dp, halo_send=hs, spmd=mesh)

@@ -28,12 +28,22 @@ first.
 Low-rank operands are tall-skinny matmuls UᵀB. Output convention: a
 length-(m+1) vector whose slot ``m`` carries ⟨C, ·⟩ (the objective) and
 slots 0..m-1 carry ⟨Aᵢ, ·⟩.
+
+On a rank-local problem (``dp.spmd`` set) U and V are this rank's row
+blocks: row dots and objective partials are summed across ranks
+(``_psum``), the per-row diagonal samples are all-gathered before the
+replicated constraint lookups, the dense C's local rows multiply the
+all-gathered factor (``_full``), and the general engine samples its
+block of the pattern from the all-gathered factor, as the JAX package's
+``ops/forward.py`` does under shard_map.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.comm import dp_full as _full
+from ..parallel.comm import dp_psum as _psum
 from .device import DeviceProblem
 from .gather import gather_rows
 from .spmm import spmm_C
@@ -49,37 +59,45 @@ def _C_times(dp: DeviceProblem, X: torch.Tensor) -> torch.Tensor:
     """C@X on the diagonal engines (sparse part of C; low-rank C terms are
     added by the caller). The general engine reads ⟨C, ·⟩ from the
     objective slot of ``_reduce`` and S·X from the general ``apply_S``."""
-    return dp.C_dense @ X if dp.C_dense is not None else spmm_C(dp, X)
+    return dp.C_dense @ _full(dp, X) if dp.C_dense is not None \
+        else spmm_C(dp, X)
 
 
 def _reduce(dp: DeviceProblem, uv: torch.Tensor) -> torch.Tensor:
     """uv values at the aggregate pattern (P_pad,) -> (m+1,) constraint
     values, slot m the objective ⟨C, ·⟩ (wide constraints through their
-    dense P-aligned rows ``wide_val_two``)."""
-    obj = torch.dot(dp.c_val_two, uv)
+    dense P-aligned rows ``wide_val_two``). On a rank-local problem uv
+    is this rank's pattern block: the objective and wide partials are
+    summed, and uv is all-gathered for the replicated lookups."""
+    obj = _psum(torch.dot(dp.c_val_two, uv), dp)
+    if dp.wide_gids:
+        wide = _psum(dp.wide_val_two @ uv, dp)
+    uv = _full(dp, uv)
     g = uv[dp.con_pos.reshape(-1)]
     cons = torch.sum(dp.con_val_two * g.reshape(dp.m, dp.con_width), dim=1)
     if dp.wide_gids:
         cons = cons.index_copy(
-            0, torch.tensor(dp.wide_gids, device=cons.device),
-            dp.wide_val_two @ uv)
+            0, torch.tensor(dp.wide_gids, device=cons.device), wide)
     return torch.cat([cons, obj[None]])
 
 
 def uv_values_uu(dp: DeviceProblem, U: torch.Tensor) -> torch.Tensor:
     """(UUᵀ) sampled at the aggregate triu pattern -> (P_pad,): one row
     gather of U at the pattern's rows, then its columns
-    (``DeviceProblem.uv_ids``)."""
-    Ug = gather_rows(U.contiguous(), dp.uv_ids)
-    return torch.sum(Ug[:dp.P_pad] * Ug[dp.P_pad:], dim=1)
+    (``DeviceProblem.uv_ids``; on a rank-local problem this rank's
+    block of the pattern, from the all-gathered U)."""
+    Ug = gather_rows(_full(dp, U).contiguous(), dp.uv_ids)
+    p = dp.uv_ids.shape[0] // 2
+    return torch.sum(Ug[:p] * Ug[p:], dim=1)
 
 
 def _gather_pair(dp: DeviceProblem, U: torch.Tensor, V: torch.Tensor):
     """[U|V] at the pattern's rows and at its columns, by one row gather
     at width 2r: (Ur, Vr, Uc, Vc), each (P_pad, r)."""
     r = U.shape[1]
-    G = gather_rows(torch.cat([U, V], dim=1), dp.uv_ids)
-    Gr, Gc = G[:dp.P_pad], G[dp.P_pad:]
+    G = gather_rows(_full(dp, torch.cat([U, V], dim=1)), dp.uv_ids)
+    p = dp.uv_ids.shape[0] // 2
+    Gr, Gc = G[:p], G[p:]
     return Gr[:, :r], Gr[:, r:], Gc[:, :r], Gc[:, r:]
 
 
@@ -91,8 +109,9 @@ def uv_values_uv(dp: DeviceProblem, U: torch.Tensor,
 
 
 def _dense_cons(dp: DeviceProblem, rowvals: torch.Tensor) -> torch.Tensor:
-    """cons_k = Σⱼ con_val_two[k,j] · rowvals[con_rows[k,j]]."""
-    g = rowvals[dp.con_rows.reshape(-1)]
+    """cons_k = Σⱼ con_val_two[k,j] · rowvals[con_rows[k,j]] (rowvals
+    all-gathered first on a rank-local problem)."""
+    g = _full(dp, rowvals)[dp.con_rows.reshape(-1)]
     return torch.sum(dp.con_val_two * g.reshape(dp.m, dp.con_width), dim=1)
 
 
@@ -104,7 +123,7 @@ def cons_from_rowvals(dp: DeviceProblem, rowvals: torch.Tensor) -> torch.Tensor:
     if dp.wide_gids:
         cons = cons.index_copy(
             0, torch.tensor(dp.wide_gids, device=cons.device),
-            dp.wide_diag_w @ rowvals)
+            _psum(dp.wide_diag_w @ rowvals, dp))
     return cons
 
 
@@ -114,8 +133,8 @@ def _fast_vals(dp: DeviceProblem, rowvals, obj) -> torch.Tensor:
 
 def _add_lowrank(vals, dp, U, V, scale=1.0):
     for t in dp.lowrank:
-        UtB = U.T @ t.B
-        VtB = UtB if V is U else V.T @ t.B
+        UtB = _psum(U.T @ t.B, dp)
+        VtB = UtB if V is U else _psum(V.T @ t.B, dp)
         vals = vals.index_add(
             0, torch.tensor([t.gid], device=vals.device),
             (scale * torch.sum(t.d * torch.sum(UtB * VtB, dim=0))).reshape(1),
@@ -126,7 +145,8 @@ def _add_lowrank(vals, dp, U, V, scale=1.0):
 def A_uu_cx(dp: DeviceProblem, U: torch.Tensor, CX: torch.Tensor):
     """𝒜(UUᵀ) with CX = C@U precomputed: the objective is ⟨U, CX⟩,
     the constraints reduce over row dots."""
-    vals = _fast_vals(dp, torch.sum(U * U, dim=1), torch.sum(U * CX))
+    vals = _fast_vals(dp, torch.sum(U * U, dim=1),
+                      _psum(torch.sum(U * CX), dp))
     return _add_lowrank(vals, dp, U, U)
 
 
@@ -136,8 +156,9 @@ def A_linesearch_cd(dp: DeviceProblem, R: torch.Tensor, D: torch.Tensor,
     A_RD = 𝒜(RDᵀ + DRᵀ) (objective slot 2⟨R, CD⟩) and A_DD = 𝒜(DDᵀ)
     (objective slot ⟨D, CD⟩)."""
     A_RD = _fast_vals(dp, 2.0 * torch.sum(R * D, dim=1),
-                      2.0 * torch.sum(R * CD))
-    A_DD = _fast_vals(dp, torch.sum(D * D, dim=1), torch.sum(D * CD))
+                      2.0 * _psum(torch.sum(R * CD), dp))
+    A_DD = _fast_vals(dp, torch.sum(D * D, dim=1),
+                      _psum(torch.sum(D * CD), dp))
     return _add_lowrank(A_RD, dp, R, D, 2.0), _add_lowrank(A_DD, dp, D, D)
 
 
@@ -159,7 +180,7 @@ def A_uv(dp: DeviceProblem, U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     if is_general(dp):
         return _add_lowrank(_reduce(dp, uv_values_uv(dp, U, V)), dp, U, V)
     vals = _fast_vals(dp, torch.sum(U * V, dim=1),
-                      torch.sum(U * _C_times(dp, V)))
+                      _psum(torch.sum(U * _C_times(dp, V)), dp))
     return _add_lowrank(vals, dp, U, V)
 
 

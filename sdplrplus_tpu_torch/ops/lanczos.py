@@ -17,6 +17,11 @@ and the port's major loop is a host loop that reads them anyway. The
 needed the Sturm bisection on the accelerator; the algorithm is the same
 (Sturm-count bisection, then two inverse-iteration solves for the
 residual safeguard), evaluated in float64.
+
+On a rank-local problem the Krylov vectors are row-sharded and every
+inner product of the recurrence is summed across ranks; each rank draws
+the whole start vector and keeps its rows, so every world size starts
+from the same vector (JAX package: ops/lanczos.py:39-59).
 """
 
 from __future__ import annotations
@@ -26,12 +31,14 @@ import math
 import numpy as np
 import torch
 
+from ..parallel.comm import dp_full, dp_psum, local_rows, n_loc, row_offset
 from .adjoint import apply_S, s_tri_for
 from .device import DeviceProblem
 
 
 def _row_mask(dp: DeviceProblem, dtype) -> torch.Tensor:
-    idx = torch.arange(dp.n_pad, device=dp.device)[:, None]
+    """1 on the rows of the problem, 0 on the padding (this rank's rows)."""
+    idx = torch.arange(n_loc(dp), device=dp.device)[:, None] + row_offset(dp)
     return (idx < dp.n).to(dtype)
 
 
@@ -39,17 +46,19 @@ def lanczos_v0(dp: DeviceProblem, generator: torch.Generator,
                dtype) -> torch.Tensor:
     """Random unit start vector (reference: src/coreop.jl:469-471), drawn
     on the host from ``generator`` so a seed gives the same vector on
-    every device."""
+    every device; a rank keeps its rows of it."""
     v = torch.randn((dp.n_pad, 1), generator=generator, dtype=torch.float64)
-    v = v.to(dtype=dtype, device=dp.device) * _row_mask(dp, dtype)
-    return v / torch.sqrt(torch.sum(v * v))
+    v = local_rows(dp, v).to(dtype=dtype, device=dp.device)
+    v = v * _row_mask(dp, dtype)
+    return v / torch.sqrt(dp_psum(torch.sum(v * v), dp))
 
 
 def _matvec(dp: DeviceProblem, y_full, S_dense):
-    """v ↦ S·v: one matvec with the dense S of entry mode, else apply_S
-    (the general path's pattern values assembled here, once)."""
+    """v ↦ S·v: one matvec with the dense S of entry mode (its local rows
+    times the all-gathered v on a rank-local problem), else apply_S (the
+    general path's pattern values assembled here, once)."""
     if S_dense is not None:
-        return lambda v: S_dense @ v
+        return lambda v: S_dense @ dp_full(dp, v)
     s_tri = s_tri_for(dp, y_full)
     return lambda v: apply_S(dp, y_full, v, s_tri)
 
@@ -77,9 +86,9 @@ def lanczos_alpha_beta_impl(dp: DeviceProblem, y_full, v0, q: int, *,
     k_eff = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(min(int(q), q_max)):
         Av = matvec(v)
-        a_i = torch.sum(v * Av)
+        a_i = dp_psum(torch.sum(v * Av), dp)
         Av = Av - a_i * v - beta_prev * v_prev
-        b_i = torch.sqrt(torch.sum(Av * Av))
+        b_i = torch.sqrt(dp_psum(torch.sum(Av * Av), dp))
         active = ~done
         alpha[i] = torch.where(active, a_i, zero)
         beta[i] = torch.where(active, b_i, zero)
@@ -111,11 +120,11 @@ def lanczos_alpha_beta_reorth_impl(dp: DeviceProblem, y_full, v0, *,
     for i in range(q_max):
         V[i] = torch.where(done, V[i], v[:, 0])
         Av = matvec(v)
-        a_i = torch.sum(v * Av)
+        a_i = dp_psum(torch.sum(v * Av), dp)
         Av = Av - a_i * v - beta_prev * v_prev
         for _ in range(2):  # full reorthogonalization, twice
-            Av = Av - V.T @ (V @ Av)
-        b_i = torch.sqrt(torch.sum(Av * Av))
+            Av = Av - V.T @ dp_psum(V @ Av, dp)
+        b_i = torch.sqrt(dp_psum(torch.sum(Av * Av), dp))
         active = ~done
         alpha[i] = torch.where(active, a_i, zero)
         beta[i] = torch.where(active, b_i, zero)

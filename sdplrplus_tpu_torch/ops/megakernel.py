@@ -230,10 +230,14 @@ def megakernel_eligible(dp: DeviceProblem, r: int, k: int, use_armijo: bool,
     at most MAX_WIDE wide constraints, one diagonal entry per narrow
     constraint), K1 otherwise (dense C, one diagonal entry per
     constraint); both with at most MAX_LR_TERMS low-rank equality terms
-    and within the layout's limits."""
+    and within the layout's limits. Never on a rank-local problem
+    (``dp.spmd``): the kernels hold the whole factor (JAX package:
+    ops/megakernel.py:856)."""
     if dtype not in (torch.float32, torch.float64):
         return False
     if getattr(dp, "fn_apply_S", None) is not None:  # external model
+        return False
+    if getattr(dp, "spmd", None) is not None:
         return False
     if dp.ew_c2 is not None or len(dp.lowrank) > MAX_LR_TERMS:
         return False

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.adjoint import gradient, gradient_cx
+from ..parallel.comm import dp_psum
 from ..ops.device import DeviceProblem
 from ..ops.forward import A_uu, A_uu_cx
 from ..ops.spmm import spmm_C
@@ -40,7 +41,7 @@ def capped_vio(dp: DeviceProblem, vio_raw):
 
 def norms(dp: DeviceProblem, G, vio_raw, gtol_relative: bool,
           ptol_relative: bool):
-    grad_norm = torch.sqrt(torch.sum(G * G))
+    grad_norm = torch.sqrt(dp_psum(torch.sum(G * G), dp))
     if gtol_relative:
         grad_norm = grad_norm / dp.normC
     vio_norm = torch.linalg.norm(capped_vio(dp, vio_raw))

@@ -34,6 +34,7 @@ from ..ops.lanczos import (
     tridiag_min_eig_resid,
 )
 from ..ops.spmm import spmm_C
+from ..parallel.comm import dp_full, dp_psum
 
 
 def ls_dual_head(dp: DeviceProblem, R, CR=None, y_fallback=None):
@@ -45,14 +46,18 @@ def ls_dual_head(dp: DeviceProblem, R, CR=None, y_fallback=None):
     maximization; z realized through the per-row channels). Any y is a
     valid dual (weak duality). ``CR`` optionally passes C_sparse @ R;
     ``y_fallback`` (m,) supplies multipliers for low-rank constraints
-    whose direction range(R) cannot see. Returns y_head (m,)."""
+    whose direction range(R) cannot see. Returns y_head (m,). On a
+    rank-local problem R and CR are this rank's rows: the low-rank
+    products and the Grams are summed across ranks and the per-row
+    totals all-gathered before the replicated split (JAX package:
+    solver/dualbound.py:95-144)."""
     m = dp.m
     dtype, dev = R.dtype, R.device
     if CR is None:
         CR = spmm_C(dp, R)
     lr_cons = []
     for t in dp.lowrank:
-        ApR = t.B @ (t.d[:, None] * (t.B.T @ R))
+        ApR = t.B @ (t.d[:, None] * dp_psum(t.B.T @ R, dp))
         if t.gid == m:
             CR = CR + ApR          # part of the objective C
         else:
@@ -71,6 +76,7 @@ def ls_dual_head(dp: DeviceProblem, R, CR=None, y_fallback=None):
                          for Va in PVs])
         h = torch.stack([torch.sum(Va * PU) for Va in PVs])
         Vn = torch.stack([torch.sum(V * V) for _, V in lr_cons])
+        G, h, Vn = dp_psum(G, dp), dp_psum(h, dp), dp_psum(Vn, dp)
         eps = torch.finfo(dtype).eps
         # absolute floor keeps the solve nonsingular when every projected
         # direction vanishes; the blindness test below decides what to do
@@ -90,6 +96,9 @@ def ls_dual_head(dp: DeviceProblem, R, CR=None, y_fallback=None):
     alive = torch.sum(R * R, dim=1) > 0
     zero = torch.zeros((), dtype=dtype, device=dev)
     w = torch.where(alive, w, zero)
+    if dp.spmd is not None:
+        w = dp_full(dp, w)
+        alive = dp_full(dp, alive.to(dtype)) > 0
 
     slope_p, slope_n = dp.ls_slope_pos, dp.ls_slope_neg
     gid_p, gid_n = dp.ls_gid_pos, dp.ls_gid_neg
@@ -213,7 +222,9 @@ def dimacs_errors(dp: DeviceProblem, R, lam, vio_raw, obj,
                   generator: torch.Generator) -> np.ndarray:
     """Six standard DIMACS error metrics (reference: src/coreop.jl:417-453).
     err2 = err3 = 0 by construction (X = RRᵀ ⪰ 0, Z = C - 𝒜ᵀλ). In entry
-    mode S is assembled densely once for the Lanczos run and S·R."""
+    mode S is assembled densely once for the Lanczos run and S·R. On a
+    rank-local problem R is this rank's rows and ⟨R, S·R⟩ is summed
+    across ranks."""
     m = dp.m
     normb = float(torch.linalg.norm(dp.b))
     err1 = float(torch.linalg.norm(vio_raw[:m])) / (1.0 + normb)
@@ -231,6 +242,8 @@ def dimacs_errors(dp: DeviceProblem, R, lam, vio_raw, obj,
     bty = float(torch.dot(lam, dp.b))
     obj = float(obj)
     err5 = (obj - bty) / (1.0 + abs(obj) + abs(bty))
-    SR = S_dense @ R if S_dense is not None else apply_S(dp, y_full, R)
-    err6 = float(torch.sum(R * SR)) / (1.0 + abs(obj) + abs(bty))
+    SR = (S_dense @ dp_full(dp, R) if S_dense is not None
+          else apply_S(dp, y_full, R))
+    err6 = float(dp_psum(torch.sum(R * SR), dp)) / (1.0 + abs(obj)
+                                                     + abs(bty))
     return np.array([err1, 0.0, 0.0, err4, err5, err6])

@@ -16,6 +16,11 @@ CX ← CX + α·CD, refreshed exactly at major boundaries (solver/major.py).
 Exit conditions: grad_norm <= cur_gtol, stagnation (rel ΔL < stag_tol,
 reference: src/sdplr.jl:236-241), or the step budget. The L-BFGS update
 is skipped on the stagnation exit.
+
+On a rank-local problem (``dp.spmd``) R, G, CX and the L-BFGS history
+are this rank's rows, and the dots over rows are summed across ranks
+(the JAX package's inner.py under shard_map); every rank then takes the
+same branches.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..ops.adjoint import gradient, gradient_cx
 from ..ops.device import DeviceProblem, fast_diag_eligible
 from ..ops.forward import A_linesearch_cd
 from ..ops.spmm import spmm_C
+from ..parallel.comm import dp_psum
 from .al import capped_vio
 from .lbfgs import LBFGSState, lbfgs_direction, lbfgs_push
 from .linesearch import (
@@ -58,8 +64,10 @@ def inner_step(dp: DeviceProblem, c: InnerCarry, lam, sigma, stag_tol, *,
     gscale = dp.normC if gtol_relative else 1.0
 
     # direction + descent fallback (reference: src/sdplr.jl:196-205)
-    direction = lbfgs_direction(c.lbfgs, c.G, k, compact=lbfgs_compact)
-    descent = torch.sum(direction * c.G)
+    mesh = dp.spmd
+    direction = lbfgs_direction(c.lbfgs, c.G, k, compact=lbfgs_compact,
+                                mesh=mesh)
+    descent = dp_psum(torch.sum(direction * c.G), dp)
     bad = torch.isnan(descent) | (descent >= 0.0)
     direction = torch.where(bad, -c.G, direction)
 
@@ -87,7 +95,7 @@ def inner_step(dp: DeviceProblem, c: InnerCarry, lam, sigma, stag_tol, *,
                 dp, c.R, direction, c.vio_raw, lam, sigma)
         R_new = c.R + alpha * direction
         G_new, y_new = gradient(dp, R_new, lam, sigma, vio_new)
-    gnorm = torch.sqrt(torch.sum(G_new * G_new)) / gscale
+    gnorm = torch.sqrt(dp_psum(torch.sum(G_new * G_new), dp)) / gscale
 
     # fprec stagnation (reference: src/sdplr.jl:236-241)
     one = torch.ones((), dtype=L_new.dtype, device=L_new.device)
@@ -98,7 +106,8 @@ def inner_step(dp: DeviceProblem, c: InnerCarry, lam, sigma, stag_tol, *,
     # L-BFGS update, skipped on the stagnation exit
     new_lbfgs = c.lbfgs
     if k > 0 and not stagnated:
-        new_lbfgs = lbfgs_push(c.lbfgs, alpha, direction, c.G, G_new, k)
+        new_lbfgs = lbfgs_push(c.lbfgs, alpha, direction, c.G, G_new, k,
+                               mesh=mesh)
 
     return InnerCarry(R=R_new, G=G_new, y_full=y_new, vio_raw=vio_new,
                       L_val=L_new, grad_norm=gnorm, lbfgs=new_lbfgs,

@@ -17,6 +17,13 @@ graph (``_EntryGraph``) and replayed, with one host read per step for the
 loop's exit test: the eager step is a few hundred small launches, which
 hold the card idle most of each iteration. The graph runs the same
 operations on the same buffers; ``graph=False`` runs them eagerly.
+
+On a rank-local problem the masks and the carried v_ew are this rank's
+row block (ops/entrymask.py) and the dots over rows are summed across
+ranks. The step is captured as a graph only where its collectives can
+be: on one device or an NCCL mesh. A gloo mesh stages every collective
+through host memory, which a graph cannot hold, so it runs the eager
+step.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ..ops.entrymask import (
     linesearch_entry,
     vio_norm_entry,
 )
+from ..parallel.comm import dp_psum
 from .inner import InnerCarry
 from .lbfgs import LBFGSState, lbfgs_direction, lbfgs_push
 
@@ -66,8 +74,9 @@ def entry_step(dp: DeviceProblem, c: EntryCarry, Lam_ew, lam_ex, sigma,
     dense-mask form, with no host read."""
     gscale = dp.normC if gtol_relative else 1.0
 
-    direction = lbfgs_direction(c.lbfgs, c.G, k, compact=lbfgs_compact)
-    descent = torch.sum(direction * c.G)
+    direction = lbfgs_direction(c.lbfgs, c.G, k, compact=lbfgs_compact,
+                                mesh=dp.spmd)
+    descent = dp_psum(torch.sum(direction * c.G), dp)
     bad = torch.isnan(descent) | (descent >= 0.0)
     direction = torch.where(bad, -c.G, direction)
 
@@ -77,7 +86,7 @@ def entry_step(dp: DeviceProblem, c: EntryCarry, Lam_ew, lam_ex, sigma,
     CR_new = c.CR + ls.alpha * ls.CD
     G_new = gradient_entry(dp, R_new, CR_new, ls.v_ew, ls.v_ex, Lam_ew,
                            lam_ex, sigma)
-    gnorm = torch.sqrt(torch.sum(G_new * G_new)) / gscale
+    gnorm = torch.sqrt(dp_psum(torch.sum(G_new * G_new), dp)) / gscale
 
     one = torch.ones((), dtype=ls.L_new.dtype, device=ls.L_new.device)
     rel_delta = (c.L_val - ls.L_new) / torch.maximum(
@@ -87,7 +96,8 @@ def entry_step(dp: DeviceProblem, c: EntryCarry, Lam_ew, lam_ex, sigma,
     new_lbfgs = c.lbfgs
     if k > 0:
         # a stagnated step pushes no pair: keep the old ring by selection
-        pushed = lbfgs_push(c.lbfgs, ls.alpha, direction, c.G, G_new, k)
+        pushed = lbfgs_push(c.lbfgs, ls.alpha, direction, c.G, G_new, k,
+                            mesh=dp.spmd)
         new_lbfgs = LBFGSState(**{
             f: torch.where(stagnated, getattr(c.lbfgs, f), getattr(pushed, f))
             for f in _RING_FIELDS})
@@ -197,8 +207,9 @@ def entry_chunk(dp: DeviceProblem, R, G, vio_raw, L_val, grad_norm,
     """Run up to ``max_steps`` entry-mode inner iterations. m-vector in,
     m-vector out: returns the standard (InnerCarry, vio_norm) pair.
     ``graph`` (default: on CUDA tensors with the compact L-BFGS form and
-    k > 0) replays the step as a CUDA graph, kept in ``graphs`` across
-    calls (else captured for this call); the eager loop otherwise."""
+    k > 0, on one device or an NCCL mesh) replays the step as a CUDA
+    graph, kept in ``graphs`` across calls (else captured for this
+    call); the eager loop otherwise."""
     dtype, dev = R.dtype, R.device
     t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
     pscale = dp.normb if ptol_relative else 1.0
@@ -211,7 +222,8 @@ def entry_chunk(dp: DeviceProblem, R, G, vio_raw, L_val, grad_norm,
                    stagnated=torch.zeros((), dtype=torch.bool, device=dev))
     sigma, stag_tol, cur_gtol = t(sigma), t(stag_tol), t(cur_gtol)
     if graph is None:
-        graph = R.is_cuda and lbfgs_compact and k > 0
+        graph = (R.is_cuda and lbfgs_compact and k > 0
+                 and (dp.spmd is None or dp.spmd.backend == "nccl"))
     if graph:
         g = (graphs or EntryGraphs()).get(
             dp, c, Lam_ew, lam_ex, sigma, stag_tol, cur_gtol, k=k,

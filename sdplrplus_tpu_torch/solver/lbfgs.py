@@ -8,6 +8,10 @@ which makes their contributions exact no-ops. No H₀ scaling.
 Two forms of the same operator H·g: the classic two-loop recursion, and
 the Byrd–Nocedal–Schnabel compact representation (Nocedal & Wright,
 Thm 7.4 with γ = 1) on the incrementally maintained SᵀY / YᵀY Grams.
+
+In a sharded solve (``mesh`` given) the history is row-sharded like the
+factor and every dot over the rows is summed across ranks, as under the
+JAX package's shard_map.
 """
 
 from __future__ import annotations
@@ -15,6 +19,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from ..parallel.comm import psum
+
+
+def _sum(x, mesh):
+    return x if mesh is None else psum(x, mesh)
 
 
 @dataclasses.dataclass
@@ -45,33 +55,33 @@ def lbfgs_clear(state: LBFGSState) -> LBFGSState:
 
 
 def lbfgs_direction(state: LBFGSState, G: torch.Tensor, k: int,
-                    compact: bool = True) -> torch.Tensor:
+                    compact: bool = True, mesh=None) -> torch.Tensor:
     """The negated direction -H·G (reference: src/lbfgs.jl:77-124)."""
     if k == 0:
         return -G
     if compact:
-        return _direction_compact(state, G, k)
+        return _direction_compact(state, G, k, mesh)
     q = G
     a_vals = [None] * k
     for i in range(k):
         j = (state.head - i) % k
-        a = state.rho[j] * torch.sum(state.s_hist[j] * q)
+        a = state.rho[j] * _sum(torch.sum(state.s_hist[j] * q), mesh)
         q = q - a * state.y_hist[j]
         a_vals[j] = a
     for i in range(k):
         j = (state.head + 1 + i) % k
-        bq = state.rho[j] * torch.sum(state.y_hist[j] * q)
+        bq = state.rho[j] * _sum(torch.sum(state.y_hist[j] * q), mesh)
         q = q + (a_vals[j] - bq) * state.s_hist[j]
     return -q
 
 
 def _direction_compact(state: LBFGSState, G: torch.Tensor,
-                       k: int) -> torch.Tensor:
+                       k: int, mesh=None) -> torch.Tensor:
     """-H·G via the compact representation: two (2k, n·r) contractions
     plus k×k triangular solves."""
     g = G.reshape(-1)
     W = torch.cat([state.s_hist.reshape(k, -1), state.y_hist.reshape(k, -1)])
-    p = W @ g
+    p = _sum(W @ g, mesh)
     Sg, Yg = p[:k], p[k:]
 
     # ring slots oldest first: slot (head + 1 + i) % k has age rank i; the
@@ -99,7 +109,7 @@ def _direction_compact(state: LBFGSState, G: torch.Tensor,
 
 
 def lbfgs_push(state: LBFGSState, alpha, direction, G_old, G_new,
-               k: int) -> LBFGSState:
+               k: int, mesh=None) -> LBFGSState:
     """Insert s = α·D, y = G_new - G_old, ρ = 1/⟨y, s⟩ at the next ring
     slot and refresh row/column j of the SᵀY / YᵀY Grams. The slot is
     written through a (1,) index tensor, never a host read, so a tensor
@@ -114,8 +124,8 @@ def lbfgs_push(state: LBFGSState, alpha, direction, G_old, G_new,
     sy = torch.stack([s.reshape(-1), y.reshape(-1)], dim=1)       # (nr, 2)
     W = torch.cat([state.s_hist.reshape(k, -1),
                    state.y_hist.reshape(k, -1)])                  # OLD history
-    P = W @ sy                                                    # (2k, 2)
-    M = sy.T @ sy
+    PM = _sum(torch.cat([W @ sy, sy.T @ sy]), mesh)   # one reduction
+    P, M = PM[:2 * k], PM[2 * k:]                     # (2k, 2), (2, 2)
     ys = M[0, 1]
 
     sty = state.sty.index_copy(0, jj, P[k:, 0][None, :])

@@ -21,6 +21,12 @@ the same exits and the same two-way body, since PyTorch runs eagerly:
   * L-BFGS clear + fg! re-sync at the boundary (src/sdplr.jl:389), which
     on the fast-diagonal engine also refreshes the carried CX exactly.
 
+On a rank-local problem (``dp.spmd``; parallel/shardmap.py runs this
+loop on every rank) the factor, its gradient, CX and the L-BFGS history
+are this rank's rows and everything else is replicated: every reduction
+is summed across ranks inside the operators, so every rank takes the
+same branches (JAX package: solver/major.py under shard_map).
+
 Scalars that the JAX carry holds as device values of the solve's dtype
 (σ, tolerances, dual values) stay 0-dim tensors here, so float32 solves
 round where the JAX package rounds; counters and flags are Python values.
@@ -43,6 +49,7 @@ from ..ops.lanczos import (
     tridiag_min_eig_device,
     tridiag_min_eig_device_certified,
 )
+from ..parallel.comm import dp_psum, local_rows, row_offset
 from .al import al_value_grad, al_value_grad_cx, capped_vio
 from .inner import InnerCarry, inner_step
 from .inner_entry import entry_chunk
@@ -189,8 +196,8 @@ def major_chunk(
                 b=blk_b, k_max=blk_kmax, S_dense=S_dense)
             min_eig = f(theta) - f(margin)
             return -yb + trace_bound * torch.clamp(min_eig, max=0.0), k_used
-        v0 = lanczos_v0 if lanczos_v0 is not None else draw_lanczos_v0(
-            dp, c.generator, dtype)
+        v0 = (local_rows(dp, lanczos_v0) if lanczos_v0 is not None
+              else draw_lanczos_v0(dp, c.generator, dtype))
         if highprecision:
             alpha, beta, k_eff = lanczos_alpha_beta_reorth_impl(
                 dp, y_full, v0, q_max=q_max, S_dense=S_dense)
@@ -244,7 +251,7 @@ def major_chunk(
 
         R = c.ic.R
         nrm2 = torch.sum(R * R, dim=1)
-        rows = torch.arange(R.shape[0], device=dev)
+        rows = torch.arange(R.shape[0], device=dev) + row_offset(dp)
         zero = torch.zeros((), dtype=dtype, device=dev)
         b_row = torch.where(rows < dp.n,
                             dp.b[torch.clamp(rows, max=m - 1)], zero)
@@ -254,10 +261,10 @@ def major_chunk(
         Rhat = R * scale[:, None]
         CRh = spmm_C(dp, Rhat)
         for t in dp.lowrank:  # diag_identity ⇒ every low-rank term is C's
-            CRh = CRh + t.B @ (t.d[:, None] * (t.B.T @ Rhat))
-        obj_cert = torch.sum(CRh * Rhat)
+            CRh = CRh + t.B @ (t.d[:, None] * dp_psum(t.B.T @ Rhat, dp))
+        obj_cert = dp_psum(torch.sum(CRh * Rhat), dp)
         # dead rows make the projection infeasible — fall back to raw
-        bad = bool(torch.any((rows < dp.n) & ~alive))
+        bad = bool(dp_psum(torch.any((rows < dp.n) & ~alive), dp) > 0)
         return c.ic.vio_raw[m] if bad else obj_cert
 
     def feasible_branch(c: MajorCarry, vio_norm) -> MajorCarry:

@@ -28,14 +28,26 @@ call, and the host-driven loop (``_solve_host``, ``fused_outer=False``),
 which reads the state on the host after every inner chunk. Both write a
 checkpoint at major boundaries when ``checkpoint_path`` is set
 (utils/checkpoint.py); ``profile_dir`` records the solve with
-torch.profiler. Multi-device solving (``devices > 1``) raises
-NotImplementedError naming the ROADMAP slice that ports it.
+torch.profiler.
+
+Multi-device solving (``devices > 1``, or ``solve(..., mesh=...)``)
+row-shards the solve as the JAX package's shard_map path does
+(parallel/shardmap.py): each rank places only its rank-local problem on
+its device, and the carries stay row-sharded between chunks; the whole
+factor is all-gathered for a checkpoint, a rank doubling and the
+result. The host's decisions on elapsed time read rank 0's clock, and
+the result and the host polish are rank 0's, broadcast. With a process
+group already initialized every rank calls ``sdplr`` (SPMD); otherwise
+``devices`` workers are started here and rank 0's result is returned.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
+import shutil
+import tempfile
 import time
 from typing import Optional
 
@@ -167,6 +179,16 @@ def _entry_term_obj(dp, vio_raw, objtol: float, objtol_relative: bool):
     return min(mixed, lin + budget)
 
 
+def _wide_w(dp) -> np.ndarray:
+    """The wide constraint's weights wᵢ (n,) in float64, gathered from the
+    ranks' column blocks on a rank-local problem (every rank certifies
+    the same gathered factor, so all take this collective together)."""
+    from ..parallel.comm import dp_full
+
+    w = dp_full(dp, dp.extra_wide_w[0][:, None].contiguous())[:, 0]
+    return w[:dp.n].detach().cpu().numpy().astype(np.float64)
+
+
 def _greedy_is_objective(prob, dp, R_np: np.ndarray):
     """⟨C, χχᵀ⟩·b_w/Σ_S w for a greedy independent set S of the entry
     pattern, vertices tried in decreasing ‖R_i‖²: a true feasible
@@ -198,7 +220,7 @@ def _greedy_is_objective(prob, dp, R_np: np.ndarray):
     chi[S] = 1.0
     # X̃ = (b_w / Σ_{i∈S} w_i)·χχᵀ meets the wide constraint exactly
     b_w = float(dp.b[int(dp.extra_gids[0])])
-    wS = float(np.sum(dp.extra_wide_w[0, :n].cpu().numpy()[S]))
+    wS = float(np.sum(_wide_w(dp)[S]))
     if wS <= 0:
         return None
     C = prob.C
@@ -236,7 +258,7 @@ def _entry_eig_cert(prob, dp, R_np: np.ndarray):
     if n > ENTRY_EIG_MAX_N:
         return None
     R = np.asarray(R_np, dtype=np.float64)[:n]
-    w = dp.extra_wide_w[0, :n].detach().cpu().numpy().astype(np.float64)
+    w = _wide_w(dp)
     tw = float(np.sum(w * np.sum(R * R, axis=1)))
     if not (np.isfinite(tw) and tw > 0):
         return None
@@ -354,12 +376,6 @@ def sdplr(C, As, b, r: int, *, constraint_types=None,
     return solve(prob, r, cfg)
 
 
-def _not_ported(what: str, slice_: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch/CUDA package yet "
-        f"(ROADMAP {slice_})")
-
-
 def _maybe_rescale_entry(prob: SDPProblem, config: SolverConfig):
     """Conditioning of trace-normalized entry families (Lovász θ: Tr X = 1,
     edge entries 0): solve the equivalent problem in X' = f·X with
@@ -403,29 +419,58 @@ def _maybe_rescale_entry(prob: SDPProblem, config: SolverConfig):
     return prob2, cfg2, f
 
 
-def solve(prob: SDPProblem, r: int, config: SolverConfig) -> dict:
+def solve(prob: SDPProblem, r: int, config: SolverConfig,
+          mesh=None) -> dict:
     """Solve ``prob`` at starting rank ``r`` on ``config.device``. A
     trace-normalized entry family is solved in the rescaled variable
     X' = f·X (``_maybe_rescale_entry``) and its result mapped back:
-    R = R'/√f, multipliers y = f·y', ``entry_rescale_f`` = f."""
-    if int(config.devices) > 1:
-        _not_ported("multi-device solving (devices > 1)", "slice G")
-    device = resolve_device(config)
+    R = R'/√f, multipliers y = f·y', ``entry_rescale_f`` = f.
+
+    With ``config.devices > 1`` or a ``mesh`` (parallel/spmd.make_mesh)
+    the solve is row-sharded over the mesh's ranks, on the mesh's
+    devices: R, G, the L-BFGS history, the ELL, dense-C and mask rows
+    sharded, the m-vectors replicated, every reduction summed across
+    ranks (JAX package: outer.py:383-430). ``devices`` > 1 without a
+    process group starts that many workers (``_spawn_solve``)."""
+    nd = int(config.devices)
+    if mesh is None and nd > 1:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            return _spawn_solve(prob, r, config)
+        from ..parallel.multihost import global_mesh
+
+        mesh = global_mesh()
+        if mesh.size != nd:
+            raise ValueError(f"devices={nd} but the process group has "
+                             f"{mesh.size} rank(s)")
+    device = resolve_device(config) if mesh is None else mesh.device
     dtype = resolve_dtype(config)
     if config.printlevel > 0:
         print_heading(True)
 
     prob, config, rescale_f = _maybe_rescale_entry(prob, config)
     t_pre = time.time()
-    cp = compile_problem(prob, dense=config.dense_mode,
-                         entry=config.entry_mode)
-    dp = to_device(cp, dtype, device)
+    if mesh is None:
+        cp = compile_problem(prob, dense=config.dense_mode,
+                             entry=config.entry_mode)
+        dp = to_device(cp, dtype, device)
+    else:
+        # this rank's problem only (parallel/shardmap.shardmap_problem)
+        from ..parallel.shardmap import n_shards_pad, shardmap_problem
+
+        pad = n_shards_pad(mesh.size)
+        cp = compile_problem(prob, dense=config.dense_mode,
+                             entry=config.entry_mode, n_shards=mesh.size,
+                             row_pad=pad, nnz_pad=pad)
+        dp = shardmap_problem(cp, dtype, mesh)
+    del cp
     preprocess_time = time.time() - t_pre
 
     result = _profiled(config, lambda: _solve(prob, dp, r, config, dtype))
     result["preprocess_time"] = preprocess_time
     result["totaltime"] += preprocess_time
-    result["devices"] = 1
+    result["devices"] = 1 if mesh is None else mesh.size
     if rescale_f != 1.0:
         # back to the user's scale: X = X'/f, so R = R'/√f; S = f·S', so
         # y = f·y'; objective and dual values and relative norms are
@@ -441,6 +486,63 @@ def solve(prob: SDPProblem, r: int, config: SolverConfig) -> dict:
     return result
 
 
+def _spawn_solve(prob: SDPProblem, r: int, config: SolverConfig) -> dict:
+    """``config.devices`` local workers (torch.multiprocessing, start
+    method spawn), one rank each, joined by a ``file://`` rendezvous in a
+    temporary directory: NCCL with one card per rank on ``cuda``, gloo on
+    the CPU. Returns rank 0's result; a worker's failure raises here.
+    Like any spawn, a script that calls this at import time must guard
+    its entry point with ``if __name__ == "__main__":``."""
+    nd = int(config.devices)
+    dev = resolve_device(config)
+    if dev.type == "cuda":
+        have = torch.cuda.device_count()
+        if nd > have:
+            raise ValueError(
+                f"devices={nd} on 'cuda' needs {nd} cards (one per NCCL "
+                f"rank); this machine has {have}")
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    tmp = tempfile.mkdtemp(prefix="sdplr_spawn_")
+    try:
+        torch.multiprocessing.spawn(
+            _solve_worker, args=(nd, backend, dev.type, tmp, prob, r, config),
+            nprocs=nd, join=True, start_method="spawn")
+        with open(os.path.join(tmp, "result.pkl"), "rb") as f:
+            return pickle.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _solve_worker(rank: int, nd: int, backend: str, dev_type: str, tmp: str,
+                  prob: SDPProblem, r: int, config: SolverConfig):
+    """One rank of ``_spawn_solve``: join the group, solve on the mesh,
+    rank 0 writes the result."""
+    import torch.distributed as dist
+
+    from ..parallel.spmd import make_mesh
+
+    device = torch.device(dev_type, rank) if dev_type == "cuda" \
+        else torch.device("cpu")
+    if dev_type == "cuda":
+        torch.cuda.set_device(device)
+    else:   # the host's threads shared among the ranks
+        torch.set_num_threads(max(1, torch.get_num_threads() // nd))
+    dist.init_process_group(backend,
+                            init_method=f"file://{os.path.join(tmp, 'rdv')}",
+                            world_size=nd, rank=rank)
+    try:
+        mesh = make_mesh(nd, device=device)
+        cfg = config if rank == 0 else config.copy_with(printlevel=0)
+        result = solve(prob, r, cfg, mesh=mesh)
+        if rank == 0:
+            with open(os.path.join(tmp, "result.pkl"), "wb") as f:
+                pickle.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
 def solve_model(model: CustomModel, r: int,
                 config: Optional[SolverConfig] = None, **kwargs) -> dict:
     """Solve an external model (adapter.CustomModel) at starting rank
@@ -448,10 +550,13 @@ def solve_model(model: CustomModel, r: int,
     (reference: src/lowrankopt.jl:33-53). It runs where the model's
     tensors are (the card unless the model was built with
     ``device="cpu"``), in the model's dtype; ``config.device`` and
-    ``config.dtype`` are not read."""
+    ``config.dtype`` are not read. An external model runs on one device:
+    ``devices`` > 1 raises."""
     cfg = (config or SolverConfig()).copy_with(**kwargs)
     if int(cfg.devices) > 1:
-        _not_ported("multi-device solving (devices > 1)", "slice G")
+        raise ValueError("an external model runs on one device; its "
+                         "callables cannot be row-sharded (devices must "
+                         "be 1)")
     if cfg.printlevel > 0:
         print_heading(True)
     result = _solve(model, model, r, cfg, model.dtype)
@@ -495,9 +600,32 @@ def _has_inequalities(prob) -> bool:
 
 
 def _solve(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
+    """The fused driver (or the host-driven loop), the host f64 dual
+    polish and the reseed ladder. On the rank-local problem of a sharded
+    solve (``dp.spmd``) the fused driver's result and the polish are
+    rank 0's, broadcast, so every rank takes the same decisions after
+    them."""
+    mesh = dp.spmd
+    if mesh is not None and not config.fused_outer:
+        raise ValueError(
+            "multi-device solves run through the fused outer driver; "
+            "set fused_outer=True (the default) when devices > 1")
     if not config.fused_outer:
         return _solve_host(prob, dp, r, config, dtype)
-    result = _solve_fused(prob, dp, r, config, dtype)
+
+    def agreed(fn, res=None):
+        # fn(res) on rank 0 only, its result on every rank
+        if mesh is None:
+            return fn(res)
+        from ..parallel.comm import broadcast_obj
+
+        return broadcast_obj(fn(res) if mesh.rank == 0 else None, mesh)
+
+    def fused(cfg):
+        res = _solve_fused(prob, dp, r, cfg, dtype)
+        return res if mesh is None else agreed(lambda _: res)
+
+    result = fused(config)
 
     def _gap_of(res):
         g = res.get("rel_duality_gap")
@@ -560,7 +688,7 @@ def _solve(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
             res["dual_refine_error"] = f"{type(e).__name__}: {e}"
         return res
 
-    result = _dual_polish(result)
+    result = agreed(_dual_polish, result)
     spent = float(result["totaltime"])
     # reseed-restart, the last rung of the stall ladder: a trajectory can
     # land in a spurious basin; while wall-clock remains, retry from a
@@ -578,33 +706,50 @@ def _solve(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
             print(f"certificate unusable (gap {_gap_of(result):.3g}) with "
                   f"budgets exhausted; reseed-restart {attempts} "
                   f"(seed {cfg2.seed}).")
-        res2 = _solve_fused(prob, dp, r, cfg2, dtype)
+        res2 = fused(cfg2)
         spent += float(res2["totaltime"])
         if _gap_of(res2) < _gap_of(result):
             result = res2
         result["totaltime"] = spent
         result["reseed_attempts"] = attempts
-    return _dual_polish(result)
+    return agreed(_dual_polish, result)
 
 
 def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
                  dtype) -> dict:
     """Each call of major_chunk runs up to ``inner_chunk`` inner steps and
     every major-iteration boundary it crosses; the host checks limits,
-    prints, and re-specializes shapes on rank doubling."""
+    prints, and re-specializes shapes on rank doubling. On the rank-local
+    problem of a sharded solve (``dp.spmd``) each call is the mesh's
+    program (parallel/shardmap.make_shardmap_major) and R, G, CX and the
+    L-BFGS history stay this rank's rows; ``dp_full`` gathers the factor
+    where the whole is read."""
     from ..ops.megakernel import mega_spec_for, megakernel_eligible
+    from ..parallel.comm import clock as mesh_clock
+    from ..parallel.comm import dp_full, local_rows, n_loc
+    from ..parallel.shardmap import engine_suffix, make_shardmap_major
     from .major import init_major_carry, major_chunk
 
     n, m = dp.n, dp.m
     rng = np.random.default_rng(config.seed)
     gen = torch.Generator().manual_seed(int(config.seed))
+    mesh = dp.spmd
+    clock = lambda: mesh_clock(mesh)
 
-    starttime = time.time()
+    def run_chunk(carry, *args, mega_data, entry_graphs, mega_kw, **kw):
+        if mesh is None:
+            return major_chunk(dp, carry, *args, mega_data, **kw,
+                               entry_graphs=entry_graphs, **mega_kw)
+        return make_shardmap_major(mesh, dp, **kw)(
+            dp, carry, *args, entry_graphs=entry_graphs)
+
+    starttime = clock()
     lastprint = starttime
 
     R, lam = _init_vars(prob, dp, r, config, dtype, rng)
     R0_np = R[:n].cpu().numpy()
     lam0_np = lam.cpu().numpy()
+    R = local_rows(dp, R)
 
     k = int(config.numlbfgsvecs)
     use_armijo = dp.has_inequalities
@@ -636,7 +781,8 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
         return init_major_carry(
             dp, R, lam, sigma0, max(1.0 / sigma0 ** 0.1, config.ptol),
             max(1.0 / sigma0, _gtol_floor(config, dtype)), gen,
-            lbfgs_init(k, dp.n_pad, r, dtype, dp.device), config.rankupd_tol,
+            lbfgs_init(k, n_loc(dp), r, dtype, dp.device),
+            config.rankupd_tol,
             gtol_relative=gtol_rel, ptol_relative=ptol_rel,
             with_cx=cx_for(r))
 
@@ -693,33 +839,32 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
         dispatch_majors = (
             min(major_thresh, majors_now + (8 if blk[0] else 2))
             if adapt else major_thresh)
-        t_dispatch = time.time()
-        carry, vio_norm_d = major_chunk(
-            dp, carry, steps_now + chunk, dispatch_majors, base_total,
+        t_dispatch = clock()
+        carry, vio_norm_d = run_chunk(
+            carry, steps_now + chunk, dispatch_majors, base_total,
             stag_tol, config.ptol, gtol_floor, config.objtol,
             config.sigmafac, config.prior_trace_bound, config.rankupd_tol,
-            mega_data, k=k, use_armijo=use_armijo,
+            mega_data=mega_data, entry_graphs=entry_graphs,
+            mega_kw=mega_kwargs(r), k=k, use_armijo=use_armijo,
             gtol_relative=gtol_rel, ptol_relative=ptol_rel,
             objtol_relative=objtol_rel, q_max=q_max,
             highprecision=bool(config.eigval_highprecision),
             dual_safeguard=bool(config.dual_safeguard),
             lbfgs_compact=config.lbfgs_impl == "compact",
             blk_b=blk[0], blk_kmax=blk[1],
-            blk_margin_frac=blk_margin_frac, blk_k_min=blk_k_min,
-            entry_graphs=entry_graphs, **mega_kwargs(r),
-        )
+            blk_margin_frac=blk_margin_frac, blk_k_min=blk_k_min)
         new_steps = carry.ic.steps
         new_majors = carry.majoriters
         vio_norm = float(vio_norm_d)
+        now = clock()
         if adapt:
-            dt = max(time.time() - t_dispatch, 1e-3)
+            dt = max(now - t_dispatch, 1e-3)
             rate = max(new_steps - steps_now, 1) / dt
             chunk_now = int(min(max(rate * config.dispatch_target_s, 64),
                                 config.inner_chunk))
         total_iter = base_total + new_steps
         majoriter = base_major + new_majors
 
-        now = time.time()
         if config.printlevel > 0 and (
                 now - lastprint >= config.printfreq or carry.converged):
             lastprint = now
@@ -731,12 +876,15 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
                 float(carry.min_gap), float(carry.max_dual),
             )
 
-        # the state at this call's last major boundary (outer.py:830-838)
+        # the state at this call's last major boundary (outer.py:830-838);
+        # rank 0 writes the full factor of a sharded solve
         if config.checkpoint_path is not None:
-            save_checkpoint(
-                config.checkpoint_path, R=carry.ic.R[:n].cpu().numpy(),
-                lam=carry.lam.cpu().numpy(), sigma=float(carry.sigma), r=r,
-                majoriter=majoriter, total_iter=total_iter)
+            R_full = dp_full(dp, carry.ic.R)
+            if mesh is None or mesh.rank == 0:
+                save_checkpoint(
+                    config.checkpoint_path, R=R_full[:n].cpu().numpy(),
+                    lam=carry.lam.cpu().numpy(), sigma=float(carry.sigma),
+                    r=r, majoriter=majoriter, total_iter=total_iter)
 
         if carry.converged:
             break
@@ -800,11 +948,12 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
             if config.printlevel > 0:
                 print(f"rank doubled, new rank is {r}.")
             if config.rank_update_mode == "warm" and config.init_func is None:
-                R = _warm_vars(dp, carry.ic.R, r, rng, dtype)
+                R = local_rows(dp, _warm_vars(dp, dp_full(dp, carry.ic.R),
+                                              r, rng, dtype))
                 newc = init_major_carry(
                     dp, R, carry.lam, float(carry.sigma),
                     float(carry.cur_ptol), float(carry.cur_gtol), gen,
-                    lbfgs_init(k, dp.n_pad, r, dtype, dp.device),
+                    lbfgs_init(k, n_loc(dp), r, dtype, dp.device),
                     config.rankupd_tol,
                     gtol_relative=gtol_rel, ptol_relative=ptol_rel,
                     with_cx=cx_for(r))
@@ -814,7 +963,7 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
                     min_gap=carry.min_gap)
             else:
                 R, lam = _init_vars(prob, dp, r, config, dtype, rng)
-                carry = fresh_carry(R, lam)
+                carry = fresh_carry(local_rows(dp, R), lam)
             continue
         if now - starttime > config.maxtime:
             print("Warning: time limit exceeded. Stop optimizing.")
@@ -827,7 +976,7 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
             print("Warning: no progress in fused dispatch. Stop optimizing.")
             break
 
-    totaltime = time.time() - starttime
+    totaltime = clock() - starttime
     R, lam, vio_raw = carry.ic.R, carry.lam, carry.ic.vio_raw
     grad_norm = float(carry.ic.grad_norm)
     max_dual_f = float(carry.max_dual)
@@ -887,7 +1036,7 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
     dimacs_time = time.time() - t_dimacs
 
     obj = float(vio_raw[m])
-    R_np = R[:n].cpu().numpy().astype(np.float64)
+    R_np = dp_full(dp, R)[:n].cpu().numpy().astype(np.float64)
     obj_feas = _feasible_obj(prob, dp, R_np, vio_raw.cpu().numpy())
     final_gap = _final_gap(obj if obj_feas is None else obj_feas,
                            max_dual_f, feas)
@@ -925,7 +1074,8 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
         "rankupd_tol": config.rankupd_tol,
         "r": r,
         "timed_out": timed_out,
-        "inner_engine": _engine_name(dp, bool(mega_kwargs(r))),
+        "inner_engine": _engine_name(dp, bool(mega_kwargs(r))) + (
+            "" if mesh is None else engine_suffix(dp)),
         "dtype": str(dtype).replace("torch.", ""),
     }
 

@@ -157,10 +157,16 @@ def test_certify_equals_the_jax_certifys_arithmetic(artifacts, tmp_path,
         >= mine["rel_duality_gap_f64"] - 2e-3
 
 
-def test_cli_multi_device_names_slice_g():
-    with pytest.raises(NotImplementedError, match="slice G"):
-        run.main(["--device", "cpu", "--devices", "2", "--skip-warmup"]
-                 + SYN)
+def test_cli_multi_device_names_slice_g(tmp_path, monkeypatch):
+    """Slice G is in: --devices 2 row-shards the CLI's solve over two gloo
+    workers (no NotImplementedError), to the CLI's tolerances, with the
+    whole factor in the result."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    res = run.main(["--device", "cpu", "--devices", "2", "--skip-warmup",
+                    "--output", str(tmp_path)] + SYN)
+    assert res["devices"] == 2 and "+spmd" in res["inner_engine"]
+    assert res["primal_vio"] <= 1e-2 and res["rel_duality_gap"] <= 1e-2
+    assert np.asarray(res["R"]).shape[0] == 60
 
 
 def test_sweep_writes_both_artifacts(tmp_path, capsys):
@@ -227,3 +233,103 @@ def test_bench_micro_times_each_operator_on_the_cpu(capsys):
         assert r["issue_timer"].startswith("host clock")
         assert r["device_us"] is None and r["share_of_bound"] is None
     assert capsys.readouterr().out.count("[micro]") == 4
+
+
+# ---- the study scripts and the scaling driver ------------------------------
+
+def test_rank_mode_study_runs_both_modes(tmp_path):
+    """Warm and restart rank doubling on θ of C₄₈² (θ = 16) through the
+    CLI's run_one: both reach θ within 1e-2 and pinfeas ≤ 1e-2 on the
+    entry-mask engine, and the summary JSON holds both rows."""
+    from sdplrplus_tpu_torch.exps import rank_mode_study
+
+    rows = rank_mode_study.main(["--graphs", "cyclepow:48:2", "--device",
+                                 "cpu", "--output", str(tmp_path),
+                                 "--maxtime", "120"])
+    assert [r["mode"] for r in rows] == ["warm", "restart"]
+    for r in rows:
+        assert abs(-r["obj"] - 16.0) <= 16.0 * 1e-2, r
+        assert r["primal_vio"] <= 1e-2 and r["inner_engine"] == \
+            "entry-mask-torch", r
+        assert r["graph"] == "cyclepow-48-2" and r["iter"] > 0
+    with open(tmp_path / "rank_mode_study_LovaszTheta.json") as f:
+        assert json.load(f) == rows
+
+
+def test_diag_mucond_bounds_and_the_jax_dense_bound():
+    """The three μ-conductance bounds at the final iterate of a float64
+    solve on SYN60: all finite, the solver's least-squares bound (b) at
+    least the AL-iterate one (a) less 1e-9, every bound below the
+    objective plus 1e-9 (weak duality); and ``dual_value_mucond`` equal
+    to the JAX package's exps/diag_mucond.py on the same inputs (1e-10)."""
+    from sdplrplus_tpu_torch.exps import diag_mucond
+    from sdplrplus_tpu_torch.models.problems import _laplacian
+
+    out = diag_mucond.main(["--synthetic-n", "60", "--deg", "6",
+                            "--maxtime", "30", "--device", "cpu",
+                            "--dtype", "float64"])
+    for tag in ("a", "b", "c"):
+        assert np.isfinite(out[f"dual_{tag}"])
+        assert out[f"dual_{tag}"] <= out["obj"] + 1e-9
+    assert out["dual_b"] >= out["dual_a"] - 1e-9
+
+    A = synthetic_graph(60, 6)
+    d = np.asarray(A.sum(axis=1)).reshape(-1)
+    vol = float(d.sum())
+    R = np.random.default_rng(3).normal(size=(60, 4))
+    mine = diag_mucond.dual_value_mucond(_laplacian(A), d, vol, 0.1, R, 7.0)
+    theirs = _jax_script("diag_mucond").dual_value_mucond(
+        _laplacian(A), d, vol, 0.1, R, 7.0)
+    for a, b in zip(mine, theirs):
+        np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-10)
+
+
+def test_scaling_comms_words_match_the_jax_compile():
+    """exps.scaling --no-time at n = 64: a row per (kind, nd, layout),
+    the halo row only where the compile carries halo metadata, and the
+    words per pass (n_pad − n_loc)·r and (nd − 1)·H·r from the JAX
+    package's compile of the same instance (the JAX package's
+    exps/scaling.py formulas)."""
+    from sdplrplus_tpu import SDPProblem as JProblem
+    from sdplrplus_tpu.compile import compile_problem as j_compile
+    from sdplrplus_tpu.models import maxcut as j_maxcut
+    from sdplrplus_tpu_torch.exps import scaling
+    from sdplrplus_tpu_torch.models import synthetic_local_graph
+
+    out = scaling.main(["--n", "64", "--deg", "6", "--no-time", "--device",
+                        "cpu", "--out", os.devnull])
+    graphs = {"random": synthetic_graph(64, 6),
+              "local": synthetic_local_graph(64, 6, 32)}
+    seen = set()
+    for row in out["rows"]:
+        nd, r = row["nd"], 10
+        C, As, b = j_maxcut(graphs[row["kind"]])[:3]
+        pad = int(np.lcm(128, nd))
+        cp = j_compile(JProblem(C, list(As), np.asarray(b, float), None),
+                       n_shards=nd, row_pad=pad, nnz_pad=pad, dense=False)
+        if nd == 1:
+            want = 0
+        elif row["layout"] == "halo":
+            want = (nd - 1) * cp.halo_H * r
+        else:
+            want = (cp.n_pad - cp.n_pad // nd) * r
+        assert row["comms_words_per_pass_per_device"] == want, row
+        assert row["per_step_s"] is None
+        seen.add((row["kind"], nd, row["layout"]))
+    assert {(k, nd, "allgather") for k in graphs for nd in (1, 2, 4, 8)} \
+        <= seen
+    assert ("local", 2, "halo") in seen
+
+
+def test_scaling_times_two_gloo_ranks(monkeypatch):
+    """exps.scaling times the sharded fused driver at 2 gloo ranks on the
+    CPU (spawned workers), with the all-gather and with the halo: finite
+    seconds per inner step over the step budget."""
+    from sdplrplus_tpu_torch.exps import scaling
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    for halo in (False, True):
+        per_step, steps = scaling.time_world(2, "cpu", dict(
+            kind="local", n=64, deg=6, window=32, r=10, steps=3,
+            halo=halo))
+        assert steps == 3 and 0 < per_step < 10, (halo, per_step)

@@ -128,17 +128,22 @@ def test_resolve_dtype_maps_to_torch_without_side_effects():
         resolve_dtype(SolverConfig(dtype="bfloat16"))
 
 
-def test_unported_options_name_their_slice():
-    """Only multi-device solving is still to be ported (ROADMAP slice G);
-    fused_outer=False, checkpoint_path and profile_dir run
-    (tests/test_torch_host.py)."""
+def test_unported_options_name_their_slice(monkeypatch):
+    """Nothing is left unported: multi-device solving (ROADMAP slice G)
+    runs, as fused_outer=False, checkpoint_path and profile_dir do
+    (tests/test_torch_host.py). devices=2 on the CPU solves K₂ MaxCut on
+    two gloo workers (obj −1) and raises no NotImplementedError."""
     from sdplrplus_tpu_torch import sdplr
     from sdplrplus_tpu_torch.models import maxcut
     import scipy.sparse as sp
 
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     C, As, b = maxcut(sp.csr_matrix(np.array([[0.0, 1.0], [1.0, 0.0]])))
-    with pytest.raises(NotImplementedError, match="ROADMAP slice G"):
-        sdplr(C, As, b, 1, printlevel=0, device="cpu", devices=2)
+    res = sdplr(C, As, b, 1, printlevel=0, device="cpu", devices=2,
+                dtype="float64", ptol=1e-8, objtol=1e-8,
+                prior_trace_bound=2.0)
+    assert res["devices"] == 2 and "+spmd" in res["inner_engine"]
+    assert abs(res["obj"] + 1.0) < 1e-6
 
 
 def test_off_diagonal_constraints_name_the_general_engine_slice():
