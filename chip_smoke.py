@@ -89,7 +89,14 @@ from the sources in the checkout and runs these phases, one line each:
               scalar one, reach pinfeas and gap ≤ 1e-2, land within 1e-2 of
               the JAX package's objective, and not over-certify: its gap
               must be at least the float64 gap at its own multiplier
-              (λ_min by scipy's eigsh on the host) less 2e-3;
+              (λ_min by scipy's eigsh on the host) less 2e-3; its inner
+              loop runs through the captured chunk (solver/inner.py: K
+              masked steps per CUDA-graph replay, one host read each), a
+              [chunk] line with ms per iteration, host reads per inner
+              step (at most 1/K + major boundaries / steps), replays,
+              masked and warm-up steps; the ELL SpMMs and gather_rows
+              launches count every step run on the device, replays
+              included;
  11. times3   CUDA-event times in turns (plain, kernel, library, library,
               kernel, plain): gather_rows per SpMM (one launch over tier 1
               and tier 2) at the SYN20K shapes for r = 10 and 20 beside its
@@ -98,7 +105,13 @@ from the sources in the checkout and runs these phases, one line each:
               probes' shapes (N = 100,000, T = 2¹⁹, r = 16 and 32) with
               torch.index_select and torch.gather as library calls, each
               also timed per call from the host (launch cost included);
-              the SYN20K inner loop and the warm μ-conductance solve with
+              40 steps of the SYN20K inner loop at the solve's final
+              state under torch.profiler, through the captured chunk and
+              the same masked program eagerly (ms per iteration, busy
+              share, top kernels); K = 4, 8 and 16 steps per chunk on
+              that loop and on the SYN20K solve ([chunk-k]: reads and
+              masked steps); the SYN20K inner loop (a graph captured per
+              gather) and the warm μ-conductance solve with
               the SpMM's gather through the kernel and through X[idx], in
               turns; and the SYN20K solve's seconds, iterations, rank, dual
               bounds, block passes and gather launches;
@@ -132,10 +145,12 @@ from the sources in the checkout and runs these phases, one line each:
               a pinfeas within 1e-3 (relative) of 𝒜(RRᵀ) − b recomputed in
               float64 on the host from the returned R, certify no bound
               above −1000·(1 − 1e-4), and launch gather_rows exactly
-              2·iterations + 2·carry builds + Lanczos passes times (the
-              [R|D] gather and the gradient's SpMM per iteration, A_uu and
-              apply_S per carry build, one SpMM per block step); the
-              general inner loop at the final state under torch.profiler;
+              2·steps run on the device + 2·carry builds + Lanczos passes
+              times (the [R|D] gather and the gradient's SpMM per step,
+              taken, masked or warm-up, A_uu and apply_S per carry build,
+              one SpMM per block step), its inner loop through the
+              captured chunk; the general inner loop at the final state
+              under torch.profiler, through the graph and eagerly;
               θ(C₅) = √5 and a 10-node θ with entry_mode=False against its
               entry-mode objective, both to 1e-3;
  15. entry-points  the G1-shaped MaxCut of phase 4 through the host-driven
@@ -181,14 +196,17 @@ from the sources in the checkout and runs these phases, one line each:
               objective within 1e-2 of the JAX package's, gap ≤ 1e-2 and
               at least the float64 eigsh gap at its multiplier less 2e-3,
               one gather_rows launch per ELL SpMM, its seconds and ms per
-              iteration beside phase 10's unsharded solve; (b) two ranks
+              iteration beside phase 10's unsharded solve, its inner loop
+              captured with the NCCL collectives inside the graph (host
+              reads per step as in phase 10); (b) two ranks
               sharing the card over gloo, every collective staged through
               host memory: 25 float64 inner steps on SYN20K (the volume
               rule picks the all-gather) and on synthetic_local_graph(
               20000, 16, 312) (it picks the halo) equal the one-rank run
               (steps, R to 1e-9, L and grad_norm to 1e-9 relative), each
-              rank's gather_rows launches equal to its ELL SpMMs (1 + 25),
-              the host-staged step time; where the machine has two cards
+              rank's gather_rows launches equal to its ELL SpMMs (1 + the
+              steps run: 25 in eager chunks of K, the last one masked
+              past step 25), the host-staged step time; where the machine has two cards
               or more, (b) again over NCCL across the cards; (c) the study
               scripts: exps.rank_mode_study on θ of C₇₂² (= 24) from
               rank 2 in both rank-update modes (each doubles the rank),
@@ -196,7 +214,17 @@ from the sources in the checkout and runs these phases, one line each:
               synthetic_graph(800, 24) with --maxtime 10 (the three dual
               bounds finite, the solver's least-squares bound at least the
               AL-iterate one); and exps.scaling's comms words per pass at
-              n = 20,000 (--no-time).
+              n = 20,000 (--no-time);
+ 19. graph    the inner loop's captured chunk against the same masked
+              program run eagerly, 25 float64 steps (K does not divide
+              25) on each torch engine: dense-torch (the G1-shaped
+              MaxCut), fast-diag-torch exact (SYN20K) and Armijo (the
+              G1-shaped μ-conductance), general-torch (θ of C_10000^9);
+              equal steps, exit flag and ring head, the state bit-equal
+              on the dense engine and within 1e-12 where the SpMM's
+              tier-2 index_add adds with atomics (an eager-against-eager
+              control beside it); then a gradient tolerance that trips
+              inside a replay, through the same graph.
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, and the script
@@ -205,6 +233,7 @@ CUDA device is present or when the package is not beside it. Phase 18's
 workers are this script, started as ``chip_smoke.py --spmd-worker ...``.
 """
 
+import collections
 import json
 import os
 import statistics
@@ -369,6 +398,43 @@ def device_profile(fn, nsteps):
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     return (step_ms, wall_ms / nsteps, sum(dev_us.values()) / 1e3 / nsteps,
             [(k[:60], round(v / nsteps, 2)) for k, v in top])
+
+
+def chunk_report(stats, K, seconds=None):
+    """A run's inner-loop chunk counts (solver/inner.STATS) as one dict:
+    K, steps taken, chunks and graph replays, host reads per step against
+    the bound 1/K + major boundaries / steps (each activation of s steps
+    costs ⌈s/K⌉ ≤ s/K + 1 reads), masked steps, captures and their
+    warm-up steps, the state machine's branch reads (one per body), the
+    steps run on the device (taken, masked and warm-up: each launches
+    its kernels) and, given the run's seconds, ms per iteration."""
+    st = collections.Counter(stats)
+    steps = st["steps"]
+    rep = dict(K=K, steps=steps, chunks=st["chunks"], replays=st["replays"],
+               reads=st["reads"], masked=st["masked"],
+               captures=st["captures"], warmup_steps=st["warmup_steps"],
+               boundaries=st["boundaries"], branch_reads=st["branch_reads"])
+    rep["device_steps"] = steps + rep["masked"] + rep["warmup_steps"]
+    rep["reads_per_step"] = rep["reads"] / max(steps, 1)
+    rep["read_bound"] = 1.0 / K + rep["boundaries"] / max(steps, 1)
+    if seconds is not None:
+        rep["ms_per_iteration"] = 1e3 * seconds / max(steps, 1)
+    return rep
+
+
+def check_chunk(rep, what, graph=True, solve=True):
+    """The chunk counts of a run through the captured chunk program (or,
+    ``graph`` False, the eager one): steps taken, every chunk a replay,
+    and, for a solve, at most 1/K + boundaries/steps host reads per
+    step."""
+    assert rep["steps"] > 0, (what, rep)
+    if solve:
+        assert rep["reads_per_step"] <= rep["read_bound"], (what, rep)
+    if graph:
+        assert rep["replays"] == rep["chunks"] > 0, (what, rep)
+        assert rep["captures"] > 0, (what, rep)
+    else:
+        assert rep["replays"] == rep["captures"] == 0, (what, rep)
 
 
 def theta_phase(A, jax_obj, jax_gap, maxtime, zero_counts, smi, dev="cuda"):
@@ -621,6 +687,27 @@ def theta_cycle_phase(n, maxtime, zero_counts, dev="cuda"):
     return res
 
 
+def general_problem(n, k, entry_mode=None):
+    """θ of the cycle power C_n^k as the solver runs it: (A, C, As, b, the
+    entry rescale f, the compiled rescaled problem, compile seconds)."""
+    import numpy as np
+
+    from sdplrplus_tpu_torch.compile import compile_problem
+    from sdplrplus_tpu_torch.config import SolverConfig
+    from sdplrplus_tpu_torch.models import lovasz_theta, synthetic_cycle_power
+    from sdplrplus_tpu_torch.problem import SDPProblem
+    from sdplrplus_tpu_torch.solver.outer import _maybe_rescale_entry
+
+    A = synthetic_cycle_power(n, k)
+    C, As, b = lovasz_theta(A)
+    prob, _, f = _maybe_rescale_entry(
+        SDPProblem(C, As, np.asarray(b, np.float64), None),
+        SolverConfig(prior_trace_bound=1.0))
+    t0 = time.time()
+    cp = compile_problem(prob, entry=entry_mode)
+    return A, C, As, b, f, cp, time.time() - t0
+
+
 def general_phase(n, k, maxtime, zero_counts, smi, dev="cuda",
                   entry_mode=None):
     """Phase 14: Lovász θ of the cycle power C_n^k (θ = n/(k+1) exactly)
@@ -640,33 +727,20 @@ def general_phase(n, k, maxtime, zero_counts, smi, dev="cuda",
     import torch
 
     from sdplrplus_tpu_torch import sdplr
-    from sdplrplus_tpu_torch.compile import compile_problem
-    from sdplrplus_tpu_torch.config import SolverConfig
-    from sdplrplus_tpu_torch.models import (
-        lovasz_theta, make_random_graph, synthetic_cycle_power,
-    )
+    from sdplrplus_tpu_torch.models import lovasz_theta, make_random_graph
     from sdplrplus_tpu_torch.ops import gather as ga
     from sdplrplus_tpu_torch.ops import megakernel as mk
     from sdplrplus_tpu_torch.ops.device import to_device
-    from sdplrplus_tpu_torch.problem import SDPProblem
     from sdplrplus_tpu_torch.solver import dualbound as db_mod
+    from sdplrplus_tpu_torch.solver import inner as inner_mod
     from sdplrplus_tpu_torch.solver import major as major_mod
     from sdplrplus_tpu_torch.solver.al import al_value_grad
-    from sdplrplus_tpu_torch.solver.inner import inner_chunk
+    from sdplrplus_tpu_torch.solver.inner import InnerGraphs, inner_chunk
     from sdplrplus_tpu_torch.solver.lbfgs import lbfgs_init
-    from sdplrplus_tpu_torch.solver.outer import (
-        ENGINE_ENTRY, ENGINE_GENERAL, _maybe_rescale_entry,
-    )
+    from sdplrplus_tpu_torch.solver.outer import ENGINE_ENTRY, ENGINE_GENERAL
 
-    A = synthetic_cycle_power(n, k)
-    C, As, b = lovasz_theta(A)
+    A, C, As, b, f, cp, compile_s = general_problem(n, k, entry_mode)
     theta = n / (k + 1.0)
-    prob, _, f = _maybe_rescale_entry(
-        SDPProblem(C, As, np.asarray(b, np.float64), None),
-        SolverConfig(prior_trace_bound=1.0))
-    t0 = time.time()
-    cp = compile_problem(prob, entry=entry_mode)
-    compile_s = time.time() - t0
     assert cp.ew_c2 is None and cp.C_dense is None \
         and not cp.all_cons_diagonal, "not the general engine"
 
@@ -697,8 +771,9 @@ def general_phase(n, k, maxtime, zero_counts, smi, dev="cuda",
     assert max(steps_err.values()) <= 1e-9, steps_err
 
     # (b) the float32 solve; gather_rows launches per solve from the code:
-    # two per inner iteration (the [R|D] gather of A_linesearch, the SpMM
-    # of the gradient's apply_S), two per carry build (fg!: the general
+    # two per inner step run on the device (the [R|D] gather of
+    # A_linesearch, the SpMM of the gradient's apply_S; steps taken,
+    # masked and warm-up alike), two per carry build (fg!: the general
     # A_uu and apply_S) and one per Lanczos pass (block past n = 4096:
     # one apply_S per block step)
     fg_calls, passes = [0], [0]
@@ -731,7 +806,9 @@ def general_phase(n, k, maxtime, zero_counts, smi, dev="cuda",
             real_blk
     solve_s = time.time() - t0
     launches = {kk.name: kk.launches for kk in (mk.K1, mk.K2) + ga.KERNELS}
-    derived = 2 * res["iter"] + 2 * fg_calls[0] + passes[0]
+    chunk = chunk_report(inner_mod.STATS, inner_mod.chunk_steps(dev),
+                         solve_s)
+    derived = 2 * chunk["device_steps"] + 2 * fg_calls[0] + passes[0]
     # the violations 𝒜(RRᵀ) − b of the returned factor, in float64 on the
     # host, in the user's scale (ptol relative: over ‖b‖)
     R = np.asarray(res["R"], np.float64)
@@ -761,12 +838,16 @@ def general_phase(n, k, maxtime, zero_counts, smi, dev="cuda",
         f"{res['rel_duality_gap']:.4e}, dual bounds "
         f"{res['dual_bounds_computed']} (final rank), block passes "
         f"{passes[0]}; launches {launches}: gather_rows {launches['gather_rows']}"
-        f" = 2 x {res['iter']} iterations + 2 x {fg_calls[0]} carry builds"
-        f" + {passes[0]} Lanczos passes = {derived}; nvidia-smi: {smi}")
+        f" = 2 x {chunk['device_steps']} steps run on the device "
+        f"({chunk['steps']} taken, {chunk['masked']} masked, "
+        f"{chunk['warmup_steps']} warm-up) + 2 x {fg_calls[0]} carry builds"
+        f" + {passes[0]} Lanczos passes = {derived}; the inner loop through "
+        f"the captured chunk: {json.dumps(chunk)}; nvidia-smi: {smi}")
     assert res["inner_engine"] == ENGINE_GENERAL, res["inner_engine"]
     assert res["entry_rescale_f"] == f
     assert launches["K1"] == launches["K2"] == 0, launches
     assert launches["gather_rows"] == derived, (launches, derived)
+    check_chunk(chunk, "phase 14", graph=dev != "cpu")
     assert np.isfinite(res["obj"]) and np.all(np.isfinite(R))
     assert R.shape == (n, res["r"])
     assert abs(pinf - pinf64) <= 1e-3 * pinf64, (pinf, pinf64)
@@ -783,25 +864,34 @@ def general_phase(n, k, maxtime, zero_counts, smi, dev="cuda",
     sigma = torch.tensor(res["sigma"], dtype=torch.float32, device=dev)
     L0, vio0, G0, y0, gn0, _ = al_value_grad(dp, Rf, lam, sigma, True, True)
 
-    def steps_of(steps):
+    graphs = InnerGraphs()
+
+    def steps_of(steps, graph=True):
         c, _ = inner_chunk(dp, Rf, G0, y0, vio0, L0, gn0,
                            lbfgs_init(K, dp.n_pad, r, torch.float32, dev),
                            lam, sigma, -1.0, float("-inf"), steps, k=K,
                            use_armijo=False, gtol_relative=True,
-                           ptol_relative=True)
+                           ptol_relative=True, graph=graph and dev != "cpu",
+                           graphs=graphs)
         assert c.steps == steps
         return c
 
     nsteps = 20
-    step_ms, wall_ms, dev_ms, top = device_profile(steps_of, nsteps)
+    prof = {}
+    for mode, graph in (("graph", True), ("eager", False)):
+        step_ms, wall_ms, dev_ms, top = device_profile(
+            lambda s_, g=graph: steps_of(s_, g), nsteps)
+        prof[mode] = dict(ms_per_iteration=step_ms, wall_ms=wall_ms,
+                           device_ms=dev_ms, busy=dev_ms / wall_ms, top=top)
     say("profile", f"theta C_{n}^{k} general inner loop at rank {r} (n_pad "
         f"{dp.n_pad}, P_pad {dp.P_pad}; the [R|D] gather at width {2 * r} "
-        f"over {2 * dp.P_pad} ids): {step_ms:.3f} ms per iteration (CUDA "
-        f"events, {nsteps} steps); under torch.profiler {wall_ms:.3f} ms "
-        f"per iteration of host wall, {dev_ms:.4f} ms of device kernel time"
-        f" per iteration (device busy {dev_ms / wall_ms:.3%}); top kernels "
-        f"by device time per iteration (us): {json.dumps(top)}; nvidia-smi:"
-        f" {smi}")
+        f"over {2 * dp.P_pad} ids), {nsteps} steps in chunks of K = "
+        f"{inner_mod.chunk_steps(dev)}, through the captured chunk (graph) "
+        f"and the "
+        f"same masked program eagerly (eager): per iteration, ms by CUDA "
+        f"events, host wall ms and device kernel ms under torch.profiler "
+        f"(kernels named in the trace only), busy share, top kernels by "
+        f"device time (us): {json.dumps(prof)}; nvidia-smi: {smi}")
 
     # (d) two small general solves that converge, float64: θ(C₅) = √5
     # (n = 5: not entry-eligible) and a random 10-node graph with
@@ -1127,19 +1217,6 @@ def _spmd_result(payload):
     print("RESULT " + json.dumps(payload), flush=True)
 
 
-def _count_spmms(spmm_mod):
-    """Wrap spmm_ell to count the ELL SpMMs; returns (counter, restore)."""
-    real = spmm_mod.spmm_ell
-    n = [0]
-
-    def counted(*a, **k):
-        n[0] += 1
-        return real(*a, **k)
-
-    spmm_mod.spmm_ell = counted
-    return n, lambda: setattr(spmm_mod, "spmm_ell", real)
-
-
 def spmd_worker_one_rank(dev_type="cuda", n=20000):
     """Phase 18 (a), one process: SYN20K (synthetic_graph(n, 16)) through
     solve(..., mesh=...) at one NCCL rank after a 200-iteration warm-up
@@ -1158,6 +1235,7 @@ def spmd_worker_one_rank(dev_type="cuda", n=20000):
     from sdplrplus_tpu_torch.ops import spmm as spmm_mod
     from sdplrplus_tpu_torch.parallel.spmd import make_mesh
     from sdplrplus_tpu_torch.problem import SDPProblem
+    from sdplrplus_tpu_torch.solver import inner as inner_mod
     from sdplrplus_tpu_torch.solver.outer import solve
 
     A = synthetic_graph(n, 16)
@@ -1177,13 +1255,15 @@ def spmd_worker_one_rank(dev_type="cuda", n=20000):
     sync()
     ga.ROWS.launches = 0
     comm.CALLS.clear()
-    spmms, restore = _count_spmms(spmm_mod)
+    spmm_mod.CALLS.clear()
+    inner_mod.STATS.clear()
     t0 = time.time()
     res = solve(prob, RANK, cfg, mesh=mesh)
     sync()
     secs = time.time() - t0
-    restore()
     calls = dict(comm.CALLS)
+    chunk = chunk_report(inner_mod.STATS, inner_mod.chunk_steps(dev_type),
+                         secs)
     # the calls' own cost at world size 1: a 0-dim psum read on the host
     # (as the loop reads its scalars) and an all-gather of the factor
     x = torch.ones((), dtype=torch.float32, device=mesh.device)
@@ -1215,8 +1295,9 @@ def spmd_worker_one_rank(dev_type="cuda", n=20000):
         / min(abs(obj_f), abs(dual64)), iters=res["iter"],
         rank=res["r"], devices=res["devices"],
         inner_engine=res["inner_engine"], seconds=secs,
-        gather_rows=ga.ROWS.launches, spmms=spmms[0], backend=mesh.backend,
-        staged=mesh.staged, calls=calls, call_us=us))
+        gather_rows=ga.ROWS.launches, spmms=spmm_mod.CALLS["spmm_ell"],
+        backend=mesh.backend, staged=mesh.staged, calls=calls, call_us=us,
+        chunk=chunk))
     dist.destroy_process_group()
 
 
@@ -1243,6 +1324,7 @@ def spmd_worker_two_rank(rank, world, rdv, backend, dev_type="cuda",
         gather_inner, make_shardmap_inner, n_shards_pad, shardmap_problem)
     from sdplrplus_tpu_torch.parallel.spmd import make_mesh
     from sdplrplus_tpu_torch.problem import SDPProblem
+    from sdplrplus_tpu_torch.solver import inner as inner_mod
     from sdplrplus_tpu_torch.solver.al import al_value_grad
     from sdplrplus_tpu_torch.solver.inner import inner_chunk
     from sdplrplus_tpu_torch.solver.lbfgs import lbfgs_init
@@ -1280,18 +1362,21 @@ def spmd_worker_two_rank(rank, world, rdv, backend, dev_type="cuda",
         dpl = shardmap_problem(cp, f64, mesh)
         run = make_shardmap_inner(mesh, dpl, **kw)
         ga.ROWS.launches = 0
-        spmms, restore = _count_spmms(spmm_mod)
+        spmm_mod.CALLS.clear()
+        inner_mod.STATS.clear()
         sync()
         t0 = time.time()
         c, _ = run(dpl, local_rows(dpl, R0), local_rows(dpl, G), y, vio, L,
                    gn, lbfgs_init(K, n_loc(dpl), RANK, f64, dev), *args)
         sync()
         secs = time.time() - t0
-        restore()
         c = gather_inner(c, mesh)
         row = dict(halo=dpl.halo_send is not None, halo_H=cp.halo_H,
                    steps=c.steps, gather_rows=ga.ROWS.launches,
-                   spmms=spmms[0], ms_per_step=secs * 1e3 / max(c.steps, 1))
+                   spmms=spmm_mod.CALLS["spmm_ell"],
+                   chunk=chunk_report(inner_mod.STATS,
+                                      inner_mod.chunk_steps(dev)),
+                   ms_per_step=secs * 1e3 / max(c.steps, 1))
         if rank == 0:
             c1, _ = inner_chunk(dp, R0, G, y, vio, L, gn,
                                 lbfgs_init(K, cp.n_pad, RANK, f64, dev),
@@ -1373,12 +1458,14 @@ def spmd_phase(smi, syn_s, syn_iters, dev="cuda"):
         f"{sum(a['calls'].values()) / max(a['iters'], 1):.2f} per "
         f"iteration; per call (host wall, world size 1): "
         f"{json.dumps({k: round(v, 2) for k, v in a['call_us'].items()})}"
-        f" µs; nvidia-smi: {smi}")
+        f" µs; the inner loop through the captured chunk: "
+        f"{json.dumps(a['chunk'])}; nvidia-smi: {smi}")
     assert a["inner_engine"] == "fast-diag-torch+spmd", a["inner_engine"]
     assert a["devices"] == 1 and a["backend"] == "nccl" and not a["staged"]
     assert rel <= 1e-2 and a["primal_vio"] <= 1e-2 and a["gap"] <= 1e-2, a
     assert a["gap"] >= a["gap64"] - 2e-3, a
     assert a["gather_rows"] == a["spmms"] > 0, a
+    check_chunk(a["chunk"], "18 (a)")
 
     # (b) two ranks on the card over gloo (host-staged); NCCL across cards
     # where the machine has two
@@ -1407,7 +1494,9 @@ def spmd_phase(smi, syn_s, syn_iters, dev="cuda"):
                 f"{ref['steps1']}), max |ΔR| {ref['max_dR']:.3e}, rel ΔL "
                 f"{ref['rel_dL']:.3e}, rel Δgrad_norm {ref['rel_dgn']:.3e}; "
                 f"per rank gather_rows {[r['gather_rows'] for r in rows]} "
-                f"for ELL SpMMs {[r['spmms'] for r in rows]}; "
+                f"for ELL SpMMs {[r['spmms'] for r in rows]} (1 + steps run "
+                f"on the device {[r['chunk']['device_steps'] for r in rows]}"
+                f", eager chunks of K = {ref['chunk']['K']}); "
                 f"{'host-staged ' if outs[0]['staged'] else ''}step time "
                 f"{[round(r['ms_per_step'], 3) for r in rows]} ms per rank")
             assert ref["halo"] is want_halo, (name, ref)
@@ -1415,7 +1504,14 @@ def spmd_phase(smi, syn_s, syn_iters, dev="cuda"):
             assert ref["max_dR"] <= 1e-9, ref
             assert ref["rel_dL"] <= 1e-9 and ref["rel_dgn"] <= 1e-9, ref
             for r in rows:
-                assert r["gather_rows"] == r["spmms"] == 1 + SPMD_STEPS, r
+                ch = r["chunk"]
+                assert ch["steps"] == SPMD_STEPS, r
+                assert ch["device_steps"] - ch["warmup_steps"] == ch[
+                    "K"] * math.ceil(SPMD_STEPS / ch["K"]), r
+                assert r["gather_rows"] == r["spmms"] == 1 + ch[
+                    "device_steps"], r
+                check_chunk(ch, f"18 (b) {name}", graph=backend == "nccl",
+                            solve=False)
         assert outs[0]["staged"] is (backend == "gloo"), outs[0]
 
     # (c) the study scripts at small size
@@ -1459,6 +1555,210 @@ def spmd_phase(smi, syn_s, syn_iters, dev="cuda"):
     say("spmd", f"phase 18 in {time.time() - t_phase:.1f} s")
 
 
+# ---- phase 19: the captured chunk against the eager program ----------------
+
+GRAPH_STEPS = 25               # phase 19: float64 steps per engine
+
+
+def graph_phase(cases, smi):
+    """Phase 19: the inner loop's captured chunk program against the same
+    masked program run eagerly, in float64, on each engine. ``cases``
+    holds (label, engine, dp, R, λ, use_armijo, tol). From one start
+    (σ = 2, stagnation test off): GRAPH_STEPS steps (a budget K does not
+    divide) through a CUDA graph and three times eagerly, then with a
+    gradient tolerance that trips inside a replay (just above the norm of
+    an eager step K does not divide that is a new minimum by 1e-3, so
+    the run-to-run spread cannot move the exit), through the same graph
+    and eagerly. Steps, the stagnation flag and the ring head must be
+    equal; R, G, the violations, L and the ring (s, y, ρ, SᵀY, YᵀY)
+    bit-equal where ``tol`` is 0, else within ``tol`` of each one's
+    largest entry, or ten times the eager runs' own spread where that is
+    larger: the ELL SpMM's tier-2 rows are added by ``index_add``, whose
+    atomics order the sum of a row that spills into two or more tier-2
+    rows differently from run to run (graph and eager alike), and each
+    AL's stiffness amplifies that over the steps."""
+    import math
+
+    import torch
+
+    from sdplrplus_tpu_torch.ops.device import fast_diag_eligible
+    from sdplrplus_tpu_torch.ops.forward import is_general
+    from sdplrplus_tpu_torch.ops.spmm import spmm_C
+    from sdplrplus_tpu_torch.solver import inner as inner_mod
+    from sdplrplus_tpu_torch.solver.al import al_value_grad
+    from sdplrplus_tpu_torch.solver.inner import (
+        InnerCarry, InnerGraphs, inner_chunk, inner_step,
+    )
+    from sdplrplus_tpu_torch.solver.lbfgs import lbfgs_init
+
+    t_phase = time.time()
+    Kc = inner_mod.chunk_steps(cases[0][2].device)
+    assert GRAPH_STEPS % Kc != 0
+    ninf = float("-inf")
+    rows, failures = [], []
+    for label, engine, dp, R, lam, use_armijo, tol in cases:
+        got = ("general" if is_general(dp)
+               else "dense" if dp.C_dense is not None else "fast-diag")
+        assert got == engine and dp.has_inequalities == use_armijo, label
+        sigma = torch.tensor(2.0, dtype=R.dtype, device=R.device)
+        L0, vio0, G0, y0, gn0, _ = al_value_grad(dp, R, lam, sigma, True,
+                                                 True)
+        graphs = InnerGraphs()
+        ring0 = lambda: lbfgs_init(K, dp.n_pad, R.shape[1], R.dtype,
+                                   R.device)
+
+        def run(graph, gtol, steps):
+            inner_mod.STATS.clear()
+            c, _ = inner_chunk(dp, R, G0, y0, vio0, L0, gn0, ring0(), lam,
+                               sigma, gtol, ninf, steps, k=K,
+                               use_armijo=use_armijo, gtol_relative=True,
+                               ptol_relative=True, graph=graph,
+                               graphs=graphs)
+            torch.cuda.synchronize()
+            return c, collections.Counter(inner_mod.STATS)
+
+        def diff(a, b):
+            pairs = [(a.R, b.R), (a.G, b.G), (a.vio_raw, b.vio_raw),
+                     (a.L_val, b.L_val)] + [
+                (getattr(a.lbfgs, f), getattr(b.lbfgs, f))
+                for f in ("s_hist", "y_hist", "rho", "sty", "yty")]
+            err = max(float((x - y).abs().max())
+                      / max(float(y.abs().max()), 1e-300) for x, y in pairs)
+            return err, all(torch.equal(x, y) for x, y in pairs)
+
+        def check(g, eager, what, spread=0.0):
+            """The graph's run against the eager runs: equal exits; bit
+            for bit, or within ``tol`` (or ten times the spread)."""
+            exits = {(x.steps, x.stagnated, x.lbfgs.head)
+                     for x in [g] + eager}
+            err, same = min(diff(g, e) for e in eager)
+            spread = max([diff(a, b)[0] for i, a in enumerate(eager)
+                          for b in eager[i + 1:]] + [spread])
+            ok = same if tol == 0 else err <= max(tol, 10.0 * spread)
+            if len(exits) != 1 or not ok:
+                failures.append((label, what, sorted(exits), err, spread))
+            return dict(max_rel=err, bit_equal=same, eager_spread=spread)
+
+        t0 = time.time()
+        cg, sg = run(True, -1.0, GRAPH_STEPS)
+        eager = [run(False, -1.0, GRAPH_STEPS) for _ in range(3)]
+        se = eager[0][1]
+        assert cg.steps == GRAPH_STEPS, (label, cg.steps)
+        assert sg["replays"] == se["chunks"] == math.ceil(GRAPH_STEPS / Kc)
+        assert se["replays"] == 0 and sg["masked"] == se["masked"] > 0
+        budget = check(cg, [c for c, _ in eager], "budget")
+
+        # the gradient tolerance: the eager steps' norms one step at a time
+        ic = InnerCarry(R=R, G=G0, y_full=y0, vio_raw=vio0, L_val=L0,
+                        grad_norm=gn0, lbfgs=ring0(), steps=0,
+                        stagnated=False,
+                        CX=spmm_C(dp, R) if fast_diag_eligible(dp) else None)
+        norms = [float(gn0)]
+        for _ in range(20):
+            ic = inner_step(dp, ic, lam, sigma, ninf, k=K,
+                            use_armijo=use_armijo, gtol_relative=True,
+                            use_cx=ic.CX is not None)
+            norms.append(float(ic.grad_norm))
+        trips = [s_ for s_ in range(1, 21)
+                 if norms[s_] * (1 + 1e-3) < min(norms[:s_]) and s_ % Kc]
+        assert trips, (label, norms)
+        trip = trips[-1]
+        gtol = norms[trip] * (1 + 1e-6)
+        cg2, sg2 = run(True, gtol, GRAPH_STEPS)
+        ce2, _ = run(False, gtol, GRAPH_STEPS)
+        if not (cg2.steps == trip and sg2["captures"] == 0
+                and float(cg2.grad_norm) <= gtol < norms[trip - 1]):
+            failures.append((label, "gtol exit", cg2.steps, trip, sg2))
+        tripped = check(cg2, [ce2], "gtol", budget["eager_spread"])
+        rows.append(dict(case=label, engine=engine, armijo=use_armijo,
+                         n_pad=dp.n_pad, r=R.shape[1], steps=GRAPH_STEPS,
+                         replays=sg["replays"], masked=sg["masked"],
+                         warmup_steps=sg["warmup_steps"],
+                         graph_vs_eager=budget, gtol_exit_step=trip,
+                         gtol_replays=sg2["replays"],
+                         gtol_graph_vs_eager=tripped,
+                         held_to=tol or "bit-equal",
+                         seconds=time.time() - t0))
+    say("graph", f"{GRAPH_STEPS} float64 inner steps through the captured "
+        f"chunk (K = {Kc}) against the same masked program eagerly (three "
+        f"runs; eager_spread is their largest difference), and a "
+        f"gradient-tolerance exit inside a replay: {json.dumps(rows)}; "
+        f"phase 19 in {time.time() - t_phase:.1f} s; nvidia-smi: {smi}")
+    assert not failures, failures
+    return rows
+
+
+def graph_cases(dev):
+    """Phase 19's cases, in float64 on ``dev``: (label, engine, dp, R, λ,
+    use_armijo, tol) for the G1-shaped MaxCut on the dense engine,
+    SYN20K on the fast-diagonal engine, the G1-shaped μ-conductance on it
+    with Armijo, and θ of C_10000^9 on the general engine. R is
+    uniform(-1, 1) at rank RANK (for μ-conductance d-centred and scaled
+    to ⟨D, X⟩ = 1, inside its box), λ small (0 on SYN20K and θ). Bit
+    equality (tol 0) is required where the ELL SpMM's tier-2 index_add
+    has no target row that receives two or more tier-2 rows (no atomics
+    collide), always on the dense engine, which runs no SpMM in a step;
+    elsewhere the tolerance covers the atomics' spread after 25 steps on
+    an NVIDIA H100 80GB HBM3 at 700 W: 3.9e-12–4.5e-12 graph against
+    eager on SYN20K, 6.2e-7–7.6e-7 on the stiff μ-conductance, where
+    eager runs differ from each other by 6.3e-7–7.6e-7 (PERF.md §6)."""
+    import numpy as np
+    import torch
+
+    from sdplrplus_tpu_torch.compile import compile_problem
+    from sdplrplus_tpu_torch.models import (
+        make_random_graph, maxcut, mu_conductance_ineq, synthetic_graph,
+    )
+    from sdplrplus_tpu_torch.ops.device import to_device
+    from sdplrplus_tpu_torch.problem import SDPProblem
+
+    f64 = torch.float64
+    t = lambda x: torch.tensor(x, dtype=f64, device=dev)
+    g800 = make_random_graph(800, 0.83, seed=1)
+    syn = synthetic_graph(20000, 16)
+    problems = [
+        ("G1-shaped MaxCut (dense-torch)", "dense", maxcut(g800) + (None,),
+         g800, 0.0),
+        ("SYN20K (fast-diag-torch, exact)", "fast-diag",
+         maxcut(syn) + (None,), syn, 1e-10),
+        ("G1-shaped mu-conductance (fast-diag-torch, Armijo)", "fast-diag",
+         mu_conductance_ineq(g800, MU), g800, 1e-5),
+    ]
+
+    def collide(cp):
+        """Whether two tier-2 rows add into one target row."""
+        rows = np.asarray(cp.ell2_rows)
+        return len(np.unique(rows)) < len(rows)
+
+    cases = []
+    for label, engine, (C, As, b, ct), A, tol in problems:
+        cp = compile_problem(SDPProblem(C, As, np.asarray(b, np.float64), ct))
+        dp = to_device(cp, f64, dev)
+        rng = np.random.default_rng(0)
+        Rn = rng.uniform(-1.0, 1.0, (dp.n, RANK))
+        lam = np.zeros(dp.m)
+        if ct is not None:
+            d = np.asarray(A.sum(axis=1)).reshape(-1)
+            Rn -= np.outer(np.ones(dp.n), d @ Rn / d.sum())
+            Rn /= np.sqrt(np.sum(d * np.sum(Rn * Rn, axis=1)))
+        if engine == "dense" or ct is not None:
+            lam = np.minimum(0.1 * rng.standard_normal(dp.m),
+                             dp.lam_ub.cpu().numpy())
+        R = np.zeros((dp.n_pad, RANK))
+        R[: dp.n] = Rn
+        cases.append((label, engine, dp, t(R), t(lam), ct is not None,
+                      tol if collide(cp) else 0.0))
+    cp = general_problem(GENERAL_N, GENERAL_K)[5]
+    dp = to_device(cp, f64, dev)
+    rng = np.random.default_rng(0)
+    R = np.zeros((dp.n_pad, RANK))
+    R[: dp.n] = rng.uniform(-1.0, 1.0, (dp.n, RANK))
+    cases.append((f"theta of C_{GENERAL_N}^{GENERAL_K} (general-torch)",
+                  "general", dp, t(R), t(np.zeros(dp.m)), False,
+                  1e-12 if collide(cp) else 0.0))
+    return cases
+
+
 def _k2_dense():
     """K₂ MaxCut as dense matrices: C = −L/4, A_i = e_i e_iᵀ, b = 1."""
     import numpy as np
@@ -1491,11 +1791,12 @@ def main():
     from sdplrplus_tpu_torch.ops import gather as ga
     from sdplrplus_tpu_torch.ops import megakernel as mk
     from sdplrplus_tpu_torch.ops import spmm as spmm_mod
+    from sdplrplus_tpu_torch.solver import inner as inner_mod
     from sdplrplus_tpu_torch.solver import major as major_mod
     from sdplrplus_tpu_torch.ops.device import to_device
     from sdplrplus_tpu_torch.problem import SDPProblem
     from sdplrplus_tpu_torch.solver.al import al_value_grad
-    from sdplrplus_tpu_torch.solver.inner import inner_chunk
+    from sdplrplus_tpu_torch.solver.inner import InnerGraphs, inner_chunk
     from sdplrplus_tpu_torch.solver.lbfgs import lbfgs_init
     from sdplrplus_tpu_torch.solver.outer import ENGINE_FAST, ENGINE_KERNEL
     from sdplrplus_tpu_torch.utils import timing
@@ -1551,16 +1852,12 @@ def main():
         return out
 
     def zero_counts():
+        """Every launch count to 0: the kernels', the ELL SpMMs
+        (``spmm.CALLS``) and the inner loop's chunk counts."""
         for kern in (mk.K1, mk.K2) + ga.KERNELS:
             kern.launches = 0
-
-    # ELL SpMMs, counted where spmm_C calls spmm_ell (phases 7 and 10)
-    spmms = [0]
-    real_spmm_ell = spmm_mod.spmm_ell
-
-    def counted_spmm_ell(*a, **k):
-        spmms[0] += 1
-        return real_spmm_ell(*a, **k)
+        spmm_mod.CALLS.clear()
+        inner_mod.STATS.clear()
 
     # ---- problems --------------------------------------------------------
     g800 = make_random_graph(800, 0.83, seed=1)
@@ -1782,6 +2079,8 @@ def main():
 
     L0, vio0, G0, y0, gn0, _ = al_value_grad(dp, R, lam, sigma, True, True)
 
+    loop_graphs = InnerGraphs()   # captured in the first (untimed) rep
+
     def time_torch_loop(steps, reps=2):
         out = []
         for _ in range(reps + 1):
@@ -1793,7 +2092,7 @@ def main():
                                           dev),
                                lam, sigma, -1.0, ninf, steps, k=K,
                                use_armijo=False, gtol_relative=True,
-                               ptol_relative=True)
+                               ptol_relative=True, graphs=loop_graphs)
             e1.record()
             torch.cuda.synchronize()
             assert c.steps == steps
@@ -2037,15 +2336,12 @@ def main():
                prior_trace_bound=A.shape[0] * ub, dtype="float32", seed=0,
                printlevel=0)
     zero_counts()
-    spmms[0] = 0
-    spmm_mod.spmm_ell = counted_spmm_ell
     t0 = time.time()
     res = sdplr(C2, As2, b2, RANK, **kw2)
     torch.cuda.synchronize()
     cold2_s = time.time() - t0
-    spmm_mod.spmm_ell = real_spmm_ell
     launches2, k1_during = mk.K2.launches, mk.K1.launches
-    rows2, spmms2 = ga.ROWS.launches, spmms[0]
+    rows2, spmms2 = ga.ROWS.launches, spmm_mod.CALLS["spmm_ell"]
     obj, pinf, gap = res["obj"], res["primal_vio"], res["rel_duality_gap"]
     rel = abs(obj - JAX_MUCOND_G1_OBJ) / abs(JAX_MUCOND_G1_OBJ)
     X_diag = np.sum(res["R"] ** 2, axis=1)
@@ -2099,6 +2395,8 @@ def main():
 
     L0, vio0, G0, y0, gn0, _ = al_value_grad(dp, R, lam, sigma, True, True)
 
+    armijo_graphs = InnerGraphs()
+
     def time_torch_armijo(steps, reps=2):
         out = []
         for _ in range(reps + 1):
@@ -2110,7 +2408,7 @@ def main():
                                           dev),
                                lam, sigma, -1.0, ninf, steps, k=K,
                                use_armijo=True, gtol_relative=True,
-                               ptol_relative=True)
+                               ptol_relative=True, graphs=armijo_graphs)
             e1.record()
             torch.cuda.synchronize()
             assert c.steps == steps
@@ -2320,15 +2618,13 @@ def main():
     kw3 = dict(ptol=1e-2, objtol=1e-2, prior_trace_bound=float(n_syn),
                dtype="float32", seed=0, printlevel=0)
     zero_counts()
-    spmms[0] = 0
-    spmm_mod.spmm_ell = counted_spmm_ell
     t0 = time.time()
     res3 = sdplr(C_syn, As_syn, b_syn, RANK, **kw3)
     torch.cuda.synchronize()
     syn_s = time.time() - t0
-    spmm_mod.spmm_ell = real_spmm_ell
     syn_launches = {k.name: k.launches for k in (mk.K1, mk.K2) + ga.KERNELS}
-    syn_spmms = spmms[0]
+    syn_spmms = spmm_mod.CALLS["spmm_ell"]
+    syn_chunk = chunk_report(inner_mod.STATS, inner_mod.CHUNK_K, syn_s)
     major_mod.block_lanczos_min_eig = real_block
     major_mod.lanczos_alpha_beta_impl, \
         major_mod.lanczos_alpha_beta_reorth_impl = real_scalar
@@ -2375,6 +2671,9 @@ def main():
     assert pinf3 <= 1e-2 and gap3 <= 1e-2, (pinf3, gap3)
     assert rel3 <= 1e-2 and rel3a <= 1e-2, (obj3, rel3, rel3a)
     assert gap3 >= gap64 - 2e-3, (gap3, gap64)
+    say("chunk", f"SYN20K inner loop through the captured chunk: "
+        f"{json.dumps(syn_chunk)}; nvidia-smi: {smi}")
+    check_chunk(syn_chunk, "phase 10")
 
     # ---- 11. gather times -------------------------------------------------
     spmm_rows = []
@@ -2414,26 +2713,72 @@ def main():
     L0s, vio0s, G0s, y0s, gn0s, _ = al_value_grad(dp_syn, R_fin, lam_fin,
                                                    sig_fin, True, True)
 
-    def syn_steps(steps):
+    syn_graphs = {"kernel": InnerGraphs(), "plain": InnerGraphs()}
+
+    def syn_steps(steps, graph=True, who="kernel"):
+        """``steps`` inner steps through the captured chunk (one graph per
+        gather variant of [swap], each captured with its own gather), or
+        eagerly with ``graph`` False."""
         c, _ = inner_chunk(dp_syn, R_fin, G0s, y0s, vio0s, L0s, gn0s,
                            lbfgs_init(K, dp_syn.n_pad, r_fin, torch.float32,
                                       dev),
                            lam_fin, sig_fin, -1.0, ninf, steps, k=K,
                            use_armijo=False, gtol_relative=True,
-                           ptol_relative=True)
+                           ptol_relative=True, graph=graph,
+                           graphs=syn_graphs[who] if graph else None)
         assert c.steps == steps
         return c
 
     nsteps = 40
-    step_ms, wall_ms, dev_ms, top = device_profile(syn_steps, nsteps)
-    say("profile", f"SYN20K torch fast-diagonal inner loop at rank {r_fin}: "
-        f"{step_ms:.3f} ms per iteration (CUDA events, {nsteps} steps); "
-        f"under torch.profiler {wall_ms:.3f} ms per iteration of host wall, "
-        f"{dev_ms:.4f} ms of device kernel time per iteration (device busy "
-        f"{dev_ms / wall_ms:.3%}); top kernels by device time per iteration "
-        f"(us): {json.dumps(top)}; solve {syn_s:.3f} s over {res3['iter']} "
+    prof = {}
+    for mode, graph in (("graph", True), ("eager", False)):
+        step_ms, wall_ms, dev_ms, top = device_profile(
+            lambda s_, g=graph: syn_steps(s_, graph=g), nsteps)
+        prof[mode] = dict(ms_per_iteration=step_ms, wall_ms=wall_ms,
+                           device_ms=dev_ms, busy=dev_ms / wall_ms, top=top)
+    say("profile", f"SYN20K torch fast-diagonal inner loop at rank {r_fin}, "
+        f"{nsteps} steps in chunks of K = {inner_mod.CHUNK_K}, through the "
+        f"captured chunk (graph) and the same masked program eagerly "
+        f"(eager): per iteration, ms by CUDA events, host wall ms and "
+        f"device kernel ms under torch.profiler (kernels named in the "
+        f"trace only), busy share, top kernels by device time (us): "
+        f"{json.dumps(prof)}; solve {syn_s:.3f} s over {res3['iter']} "
         f"iterations = {1e3 * syn_s / max(res3['iter'], 1):.3f} ms per "
-        f"iteration")
+        f"iteration; nvidia-smi: {smi}")
+
+    # K, the steps per chunk: 40 steps of the loop above and the SYN20K
+    # solve of phase 10 at K = 4, 8 and 16 (reads per step against the
+    # masked steps at each activation's end)
+    k_rows, K0 = [], inner_mod.CHUNK_K
+    for Kc in (4, 8, 16):
+        inner_mod.CHUNK_K = Kc
+        try:
+            syn_graphs["kernel"] = InnerGraphs()
+            syn_steps(nsteps)
+            torch.cuda.synchronize()
+            e0k = torch.cuda.Event(enable_timing=True)
+            e1k = torch.cuda.Event(enable_timing=True)
+            e0k.record()
+            syn_steps(nsteps)
+            e1k.record()
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.time()
+            rk = sdplr(C_syn, As_syn, b_syn, RANK, **kw3)
+            torch.cuda.synchronize()
+            sk = time.time() - t0
+            rep = chunk_report(inner_mod.STATS, Kc, sk)
+        finally:
+            inner_mod.CHUNK_K = K0
+        assert rk["primal_vio"] <= 1e-2 and rk["rel_duality_gap"] <= 1e-2
+        k_rows.append(dict(loop_ms_per_iteration=e0k.elapsed_time(e1k)
+                           / nsteps, solve_s=sk, iterations=rk["iter"],
+                           **rep))
+    syn_graphs["kernel"] = InnerGraphs()
+    say("chunk-k", f"SYN20K at K = 4, 8, 16 steps per chunk (40-step loop "
+        f"by CUDA events; the float32 solve with its reads, replays and "
+        f"masked steps): {json.dumps(k_rows)}; nvidia-smi: {smi}")
+
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     # the gather end to end: the same work with the SpMM's row gather
@@ -2451,10 +2796,10 @@ def main():
         finally:
             spmm_mod.gather_rows = real_gather
 
-    def loop_ms():
+    def loop_ms(who):
         torch.cuda.synchronize()
         e0.record()
-        syn_steps(nsteps)
+        syn_steps(nsteps, who=who)
         e1.record()
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / nsteps
@@ -2466,11 +2811,14 @@ def main():
         assert r_["primal_vio"] <= 1e-2 and r_["rel_duality_gap"] <= 1e-2
         return time.time() - t0, r_["iter"], r_["dual_passes"]
 
+    for who in ("kernel", "plain"):        # capture both before the turns
+        with_gather(lambda w=who: syn_steps(5, who=w), who == "plain")
     swap = {w: {"syn20k_loop_ms": [], "mucond_s": [], "mucond_iters": []}
             for w in ("kernel", "plain")}
     for who in ("kernel", "plain", "plain", "kernel"):
         plain_g = who == "plain"
-        swap[who]["syn20k_loop_ms"].append(with_gather(loop_ms, plain_g))
+        swap[who]["syn20k_loop_ms"].append(with_gather(
+            lambda w=who: loop_ms(w), plain_g))
         sec, its, _ = with_gather(mucond_solve, plain_g)
         swap[who]["mucond_s"].append(sec)
         swap[who]["mucond_iters"].append(its)
@@ -2513,6 +2861,9 @@ def main():
 
     # ---- 18. the sharded solve --------------------------------------------
     spmd_phase(smi, syn_s, res3["iter"])
+
+    # ---- 19. the captured chunk against the eager program ------------------
+    graph_phase(graph_cases(dev), smi)
 
     def probe_row(kernel):
         return next(p for p in probe_rows if p["kernel"] == kernel)
@@ -2588,7 +2939,7 @@ def main():
         "bound_by": "bytes",
         "library_ms": probe_row("gather_lanes")["library_ms"],
     }]
-    say("total", f"phases 1-18 in {time.time() - t_start:.1f} s")
+    say("total", f"phases 1-19 in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

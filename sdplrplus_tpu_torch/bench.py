@@ -65,7 +65,7 @@ def inner_loop_rate(dp, r: int = RANK, *, steps=(100, 100_000),
     each size."""
     from .ops import megakernel as mk
     from .solver.al import al_value_grad
-    from .solver.inner import inner_chunk
+    from .solver.inner import InnerGraphs, inner_chunk
     from .solver.lbfgs import lbfgs_init
     from .solver.outer import _engine_name
 
@@ -81,6 +81,7 @@ def inner_loop_rate(dp, r: int = RANK, *, steps=(100, 100_000),
     lam = torch.zeros(dp.m, dtype=dtype, device=dev)
     sigma = torch.tensor(2.0, dtype=dtype, device=dev)
     timer = Timer(dev)
+    graphs = InnerGraphs()   # on the card, captured in the warm-up run
 
     def run(seed: int, nsteps: int) -> float:
         rng = np.random.default_rng(seed)
@@ -102,7 +103,7 @@ def inner_loop_rate(dp, r: int = RANK, *, steps=(100, 100_000),
             carry, _ = inner_chunk(dp, R, G, y, vio, L, gn, lb, lam, sigma,
                                    -1.0, float("-inf"), nsteps, k=K,
                                    use_armijo=False, gtol_relative=True,
-                                   ptol_relative=True)
+                                   ptol_relative=True, graphs=graphs)
             dt = timer.stop()
             done = carry.steps
         _require(done == nsteps, f"inner loop ran {done} of {nsteps} steps")

@@ -40,6 +40,8 @@ block of the pattern from the all-gathered factor, as the JAX package's
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..parallel.comm import dp_full as _full
@@ -47,6 +49,14 @@ from ..parallel.comm import dp_psum as _psum
 from .device import DeviceProblem
 from .gather import gather_rows
 from .spmm import spmm_C
+
+
+@functools.lru_cache(maxsize=None)
+def _ids(ids: tuple, device) -> torch.Tensor:
+    """The constraint ids ``ids`` as an int64 tensor on ``device``, made
+    once: a step captured as a CUDA graph may copy nothing from the
+    host."""
+    return torch.tensor(ids, dtype=torch.int64, device=device)
 
 
 def is_general(dp: DeviceProblem) -> bool:
@@ -77,7 +87,7 @@ def _reduce(dp: DeviceProblem, uv: torch.Tensor) -> torch.Tensor:
     cons = torch.sum(dp.con_val_two * g.reshape(dp.m, dp.con_width), dim=1)
     if dp.wide_gids:
         cons = cons.index_copy(
-            0, torch.tensor(dp.wide_gids, device=cons.device), wide)
+            0, _ids(tuple(dp.wide_gids), cons.device), wide)
     return torch.cat([cons, obj[None]])
 
 
@@ -122,7 +132,7 @@ def cons_from_rowvals(dp: DeviceProblem, rowvals: torch.Tensor) -> torch.Tensor:
     cons = _dense_cons(dp, rowvals)
     if dp.wide_gids:
         cons = cons.index_copy(
-            0, torch.tensor(dp.wide_gids, device=cons.device),
+            0, _ids(tuple(dp.wide_gids), cons.device),
             _psum(dp.wide_diag_w @ rowvals, dp))
     return cons
 
@@ -136,7 +146,7 @@ def _add_lowrank(vals, dp, U, V, scale=1.0):
         UtB = _psum(U.T @ t.B, dp)
         VtB = UtB if V is U else _psum(V.T @ t.B, dp)
         vals = vals.index_add(
-            0, torch.tensor([t.gid], device=vals.device),
+            0, _ids((int(t.gid),), vals.device),
             (scale * torch.sum(t.d * torch.sum(UtB * VtB, dim=0))).reshape(1),
         )
     return vals

@@ -64,6 +64,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..solver.linesearch import (
+    ARMIJO_C, N_CAND, armijo_candidates, armijo_pick,
+)
 from ..utils.build import CudaLibrary
 from .device import DeviceProblem
 
@@ -75,8 +78,9 @@ MAX_K = 16
 N_CHUNK = 64  # the kernels' n-axis granule (IC in csrc/megakernel_common.cuh)
 MAX_DIAG_CHANNELS = 4   # K2: diagonal constraint channels per row
 MAX_WIDE = 2            # K2: wide diagonal constraints
-ARMIJO_C = 1e-4         # K2's sufficient-decrease constant
-N_CAND = 51             # K2's candidate steps α_max·2⁻ᵗ, t = 0..50
+# K2's sufficient-decrease constant ARMIJO_C and its N_CAND = 51 candidate
+# steps α_max·2⁻ᵗ, t = 0..50, are the torch line search's
+# (solver/linesearch.py)
 _PI = 3.141592653589793
 
 
@@ -732,13 +736,6 @@ def mega_chunk_plain(spec: MegaSpec, scal, C, Rt_in, lam_row, w_row, b_row,
     return Rt, G, vio, oscal
 
 
-def armijo_steps(alpha_max: float, dtype, device) -> torch.Tensor:
-    """K2's candidate steps α_max·2⁻ᵗ, t = 0..N_CAND−1, halved exactly on
-    the host (a device pow need not be exact)."""
-    return torch.tensor([alpha_max * 0.5 ** t for t in range(N_CAND)],
-                        dtype=dtype).to(device)
-
-
 def mega_chunk_armijo_plain(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB,
                             WW, s_ring, y_ring, lr_B, lr_Bdt, lr_d):
     """K2's loop, step by step in torch, on the kernel's layout: the same
@@ -833,7 +830,7 @@ def mega_chunk_armijo_plain(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB,
     gnorm = torch.sqrt(gsq) / spec.gscale
     steps, stag = 0, False
     alpha = torch.zeros((), dtype=dtype, device=dev)
-    cand = armijo_steps(spec.alpha_max, dtype, dev)
+    cand = armijo_candidates(float(spec.alpha_max), dtype, dev)
     ca = cand[:, None, None]
 
     while float(gnorm) > cur_gtol and steps < max_steps and not stag:
@@ -870,10 +867,8 @@ def mega_chunk_armijo_plain(spec: MegaSpec, scal, C, Rt_in, LAM, W, Bc, UB,
             vio_w + cw * (cw * q2_w + q1_w),
             [vio_lr[i] + cand * (cand * p2_lr[t] + p1_lr[t])
              for t, i in cons_idx.items()])
-        passed = ~(L_all > L_val + ARMIJO_C * cand * slope0)
-        t_ok = int(torch.argmax(passed.to(torch.int8))) if bool(passed.any()) \
-            else N_CAND - 1
-        alpha, L_new = cand[t_ok], L_all[t_ok]
+        alpha, L_new = armijo_pick(cand, L_all,
+                                   L_val + ARMIJO_C * cand * slope0)
 
         # algebraic commit + incremental products
         vio = vio + alpha * (alpha * q2 + q1)

@@ -14,6 +14,9 @@ SpMM, over tier 1's column ids followed by tier 2's (``dp.ell_ids``,
 built once with the problem), whose output is cut into the two tiers'
 views. The contractions stay ``torch.einsum``s and the tier-2 rows an
 ``index_add``, as the JAX package leaves them to XLA.
+``CALLS["spmm_ell"]`` counts the SpMMs run, each with its one gather
+launch on the card; a captured CUDA graph adds its SpMMs at each replay
+(solver/inner.py), where no Python runs.
 
 The rows the column ids address are the row support (``support``): X
 itself on one device; on a rank-local problem the all-gathered factor,
@@ -26,11 +29,15 @@ row offset (``tier2_offset``).
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from ..parallel.comm import dp_full, mesh_of, ring_shift, row_offset
 from .device import DeviceProblem
 from .gather import gather_rows
+
+CALLS = collections.Counter()   # "spmm_ell": ELL SpMMs run
 
 
 def support(dp: DeviceProblem, X: torch.Tensor) -> torch.Tensor:
@@ -73,6 +80,7 @@ def spmm_ell(X: torch.Tensor, ell_cols: torch.Tensor, ell_val: torch.Tensor,
         ids = torch.cat([ell_cols.reshape(-1), ell2_cols.reshape(-1)]) \
             if tier2 else ell_cols.reshape(-1)
     r = X.shape[1]
+    CALLS["spmm_ell"] += 1
     Xg = gather_rows(X.contiguous(), ids)
     n1 = ell_cols.numel()
     out = spmm_contract(ell_val, Xg[:n1].view(*ell_cols.shape, r))

@@ -156,7 +156,8 @@ def make_shardmap_major(mesh: Mesh, dp: DeviceProblem, *, k: int,
     σ and tolerance schedule) on the rank-local ``dp`` of ``mesh`` (JAX
     package: shardmap.py:232), the carry's R, G, CX and L-BFGS history
     this rank's rows, in and out; further keywords of
-    solver/major.major_chunk (``entry_graphs``) pass through the call."""
+    solver/major.major_chunk (``entry_graphs``, ``inner_graphs``) pass
+    through the call."""
     _check_mesh(mesh, dp)
     return functools.partial(
         major_chunk, k=k, use_armijo=use_armijo,

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``solver/lbfgs.py`` (reference:
 src/lbfgs.jl:1-149). The history is a stacked (k, n_pad, r) pair of
-tensors with a ring head index (a Python int); empty slots carry ρ = 0,
+tensors with a ring head index (a Python int, or a 0-dim int64 tensor
+where a loop keeps it on the device); empty slots carry ρ = 0,
 which makes their contributions exact no-ops. No H₀ scaling.
 
 Two forms of the same operator H·g: the classic two-loop recursion, and
@@ -33,7 +34,7 @@ class LBFGSState:
     y_hist: torch.Tensor  # (k, n_pad, r)
     rho: torch.Tensor     # (k,)
     head: int             # index of the most recent pair (a 0-dim
-    #                       int64 tensor inside the entry loop)
+    #                       int64 tensor inside the device loops)
     sty: torch.Tensor     # (k, k) SᵀY Gram (maintained in both forms)
     yty: torch.Tensor     # (k, k) YᵀY Gram
 
@@ -61,17 +62,19 @@ def lbfgs_direction(state: LBFGSState, G: torch.Tensor, k: int,
         return -G
     if compact:
         return _direction_compact(state, G, k, mesh)
+    # slots newest first: position i holds slot (head - i) % k; gathered
+    # by an index tensor, so a device head needs no host read
+    order = (state.head - torch.arange(k, device=G.device)) % k
+    S, Y, rho = state.s_hist[order], state.y_hist[order], state.rho[order]
     q = G
-    a_vals = [None] * k
+    a_vals = []
     for i in range(k):
-        j = (state.head - i) % k
-        a = state.rho[j] * _sum(torch.sum(state.s_hist[j] * q), mesh)
-        q = q - a * state.y_hist[j]
-        a_vals[j] = a
-    for i in range(k):
-        j = (state.head + 1 + i) % k
-        bq = state.rho[j] * _sum(torch.sum(state.y_hist[j] * q), mesh)
-        q = q + (a_vals[j] - bq) * state.s_hist[j]
+        a = rho[i] * _sum(torch.sum(S[i] * q), mesh)
+        q = q - a * Y[i]
+        a_vals.append(a)
+    for i in reversed(range(k)):      # oldest first
+        bq = rho[i] * _sum(torch.sum(Y[i] * q), mesh)
+        q = q + (a_vals[i] - bq) * S[i]
     return -q
 
 
@@ -85,8 +88,9 @@ def _direction_compact(state: LBFGSState, G: torch.Tensor,
     Sg, Yg = p[:k], p[k:]
 
     # ring slots oldest first: slot (head + 1 + i) % k has age rank i; the
-    # head may be a Python int or a 0-dim device tensor (solver/inner_entry
-    # keeps it on the device so a step has no host round trip)
+    # head may be a Python int or a 0-dim device tensor (solver/inner and
+    # solver/inner_entry keep it on the device so a step has no host
+    # round trip)
     perm = (torch.arange(k, device=G.device) + (state.head + 1)) % k
     empty = state.rho == 0.0
     mask2 = empty[:, None] | empty[None, :]
@@ -109,11 +113,14 @@ def _direction_compact(state: LBFGSState, G: torch.Tensor,
 
 
 def lbfgs_push(state: LBFGSState, alpha, direction, G_old, G_new,
-               k: int, mesh=None) -> LBFGSState:
+               k: int, mesh=None, push=None) -> LBFGSState:
     """Insert s = α·D, y = G_new - G_old, ρ = 1/⟨y, s⟩ at the next ring
     slot and refresh row/column j of the SᵀY / YᵀY Grams. The slot is
     written through a (1,) index tensor, never a host read, so a tensor
-    head stays on the device; the returned head has the input's type."""
+    head stays on the device; the returned head has the input's type.
+    ``push`` (a 0-dim bool tensor) keeps the ring as it was where false,
+    by selection: the slot is rewritten with its own contents and the
+    head stays, so no host read decides it (the head is then a tensor)."""
     if k == 0:
         return state
     j = (state.head + 1) % k
@@ -134,9 +141,18 @@ def lbfgs_push(state: LBFGSState, alpha, direction, G_old, G_new,
     yty = state.yty.index_copy(0, jj, P[k:, 1][None, :])
     yty.index_copy_(1, jj, P[k:, 1][:, None])
     yty.index_put_((jj, jj), M[1, 1].reshape(1))
+    rho = state.rho.index_copy(0, jj, (1.0 / ys).reshape(1))
+    if push is not None:
+        sty = torch.where(push, sty, state.sty)
+        yty = torch.where(push, yty, state.yty)
+        rho = torch.where(push, rho, state.rho)
+        s = torch.where(push, s, state.s_hist.index_select(0, jj)[0])
+        y = torch.where(push, y, state.y_hist.index_select(0, jj)[0])
+        head = state.head if torch.is_tensor(state.head) else torch.full(
+            (), state.head, dtype=torch.int64, device=G_new.device)
+        j = torch.where(push, jj[0], head)
 
     s_hist = state.s_hist.index_copy(0, jj, s[None])
     y_hist = state.y_hist.index_copy(0, jj, y[None])
-    rho = state.rho.index_copy(0, jj, (1.0 / ys).reshape(1))
     return LBFGSState(s_hist=s_hist, y_hist=y_hist, rho=rho, head=j,
                       sty=sty, yty=yty)

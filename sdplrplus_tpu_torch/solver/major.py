@@ -3,14 +3,16 @@
 Counterpart of the JAX package's ``solver/major.py`` (reference:
 src/sdplr.jl:185-393). The JAX package fuses the whole major-iteration
 state machine into one ``lax.while_loop``; here it is a Python loop with
-the same exits and the same two-way body, since PyTorch runs eagerly:
+the same exits and the same two-way body, each body a whole inner
+activation or one major boundary, picked on one host read of the state:
 
-  * inner L-BFGS steps: one ``inner_step`` of the torch loop per body
-    iteration (on the fast-diagonal engine with the carried CX = C@R), or
-    one launch of a CUDA megakernel (ops/megakernel.mega_chunk: K1 for
-    equality problems, K2 for the inequality families) that runs a whole
-    inner activation, or in entry mode (Lovász θ) one call of the
-    dense-mask loop (solver/inner_entry.entry_chunk) per activation;
+  * inner L-BFGS steps: one activation of the torch loop
+    (solver/inner.run_activation: chunks of K masked steps on the device,
+    a CUDA graph on the card, one host read per chunk; on the
+    fast-diagonal engine with the carried CX = C@R), or one launch of a
+    CUDA megakernel (ops/megakernel.mega_chunk: K1 for equality
+    problems, K2 for the inequality families), or in entry mode (Lovász
+    θ) one call of the dense-mask loop (solver/inner_entry.entry_chunk);
   * the feasibility branch: vio ≤ cur_ptol → at strict boundaries the
     Lanczos dual bound (least-squares and AL multipliers alternating; in
     entry mode on S assembled densely once per bound),
@@ -51,7 +53,8 @@ from ..ops.lanczos import (
 )
 from ..parallel.comm import dp_psum, local_rows, row_offset
 from .al import al_value_grad, al_value_grad_cx, capped_vio
-from .inner import InnerCarry, inner_step
+from .inner import STATS as INNER_STATS
+from .inner import SIGMA_CAP, InnerCarry, InnerGraphs, run_activation
 from .inner_entry import entry_chunk
 from .lbfgs import lbfgs_clear
 
@@ -116,6 +119,8 @@ def major_chunk(
     lanczos_v0=None,      # (n_pad, 1) start vector for every bound of
     #                       this call; None draws from carry.generator
     entry_graphs=None,    # solver/inner_entry.EntryGraphs of the solve
+    inner_graphs: InnerGraphs | None = None,  # solver/inner's, likewise
+    #                       (None: one for this call)
 ):
     """Advance the solve by up to ``budget`` inner steps / ``major_budget``
     major boundaries. Returns (MajorCarry, vio_norm)."""
@@ -126,23 +131,27 @@ def major_chunk(
     objtol, sigmafac, trace_bound = f(objtol), f(sigmafac), f(trace_bound)
     pscale = dp.normb if ptol_relative else 1.0
     logn = math.log(max(dp.n, 2))
-    sigma_cap = f(2.0) ** 100
     # fast-diagonal engine (solver/inner.py use_cx): only for the torch
-    # inner_step engine; the megakernels and the entry engine carry
+    # inner loop; the megakernels and the entry engine carry
     # CX = None (fast_diag_eligible is false in entry mode)
     use_cx = mega_spec is None and fast_diag_eligible(dp)
     entry = entry_enabled(dp)
+    if inner_graphs is None:
+        inner_graphs = InnerGraphs()
 
-    def healthy(c: MajorCarry) -> bool:
-        # stop on a numerically failed state (NaN L or σ overflow) instead
-        # of spinning the infeasible branch to the major limit
-        return bool(torch.isfinite(c.ic.L_val) & torch.isfinite(c.sigma)
-                    & (c.sigma < sigma_cap))
+    def state_flags(c: MajorCarry) -> list:
+        """[healthy, inner active] in one host read. Healthy: stop on a
+        numerically failed state (NaN L or σ overflow) instead of
+        spinning the infeasible branch to the major limit."""
+        healthy = (torch.isfinite(c.ic.L_val) & torch.isfinite(c.sigma)
+                   & (c.sigma < SIGMA_CAP))
+        active = (c.ic.grad_norm > c.cur_gtol) & (not c.ic.stagnated)
+        INNER_STATS["branch_reads"] += 1
+        return torch.stack([healthy, active]).tolist()
 
     def cond(c: MajorCarry) -> bool:
         return (not c.converged and not c.rank_double
-                and c.ic.steps < budget and c.majoriters < major_budget
-                and healthy(c))
+                and c.ic.steps < budget and c.majoriters < major_budget)
 
     if mega_spec is not None:
         from ..ops.megakernel import mega_chunk
@@ -168,10 +177,11 @@ def major_chunk(
             return dataclasses.replace(c, ic=ic2)
     else:
         def inner_branch(c: MajorCarry) -> MajorCarry:
-            ic2 = inner_step(dp, c.ic, c.lam, c.sigma, stag_tol, k=k,
-                             use_armijo=use_armijo,
-                             gtol_relative=gtol_relative,
-                             lbfgs_compact=lbfgs_compact, use_cx=use_cx)
+            ic2 = run_activation(
+                dp, c.ic, c.lam, c.sigma, c.cur_gtol, stag_tol,
+                max(budget - c.ic.steps, 0), k=k, use_armijo=use_armijo,
+                gtol_relative=gtol_relative, lbfgs_compact=lbfgs_compact,
+                use_cx=use_cx, graphs=inner_graphs)
             return dataclasses.replace(c, ic=ic2)
 
     def bound_for(c: MajorCarry, y_head):
@@ -321,6 +331,7 @@ def major_chunk(
                                    cur_gtol=1.0 / sigma2)
 
     def major_branch(c: MajorCarry) -> MajorCarry:
+        INNER_STATS["boundaries"] += 1
         vio_norm = _vio_norm(dp, c.ic.vio_raw, pscale)
         if bool(vio_norm <= c.cur_ptol):
             c = feasible_branch(c, vio_norm)
@@ -346,8 +357,9 @@ def major_chunk(
         return dataclasses.replace(c, ic=ic2)
 
     while cond(carry):
-        inner_active = (bool(carry.ic.grad_norm > carry.cur_gtol)
-                        and not carry.ic.stagnated)
+        healthy, inner_active = state_flags(carry)
+        if not healthy:
+            break
         carry = inner_branch(carry) if inner_active else major_branch(carry)
     return carry, _vio_norm(dp, carry.ic.vio_raw, pscale)
 

@@ -66,7 +66,7 @@ from ..utils.checkpoint import save_checkpoint
 from ..utils.printing import print_heading, print_intermediate
 from .dualbound import dimacs_errors, dual_obj
 from .al import al_value_grad
-from .inner import inner_chunk
+from .inner import InnerGraphs, inner_chunk
 from .inner_entry import EntryGraphs, entry_chunk
 from .lbfgs import lbfgs_clear, lbfgs_init
 from .rank import next_rank
@@ -737,11 +737,12 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
     clock = lambda: mesh_clock(mesh)
 
     def run_chunk(carry, *args, mega_data, entry_graphs, mega_kw, **kw):
+        graphs = dict(entry_graphs=entry_graphs, inner_graphs=inner_graphs)
         if mesh is None:
-            return major_chunk(dp, carry, *args, mega_data, **kw,
-                               entry_graphs=entry_graphs, **mega_kw)
-        return make_shardmap_major(mesh, dp, **kw)(
-            dp, carry, *args, entry_graphs=entry_graphs)
+            return major_chunk(dp, carry, *args, mega_data, **kw, **graphs,
+                               **mega_kw)
+        return make_shardmap_major(mesh, dp, **kw)(dp, carry, *args,
+                                                   **graphs)
 
     starttime = clock()
     lastprint = starttime
@@ -797,6 +798,7 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
     final_polish = False       # permanent stagnation-off at the ladder end
     timed_out = False
     entry_graphs = EntryGraphs()   # the entry step's CUDA graph, this solve
+    inner_graphs = InnerGraphs()   # the inner chunk's CUDA graph, likewise
     vio_norm = float("inf")
 
     # adaptive per-call step budget (config.dispatch_target_s); small
@@ -1145,6 +1147,7 @@ def _solve_host(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
     pscale = dp.normb if ptol_rel else 1.0
     lbfgs = lbfgs_init(k, dp.n_pad, r, dtype, dev)
     entry_graphs = EntryGraphs()
+    inner_graphs = InnerGraphs()
     # minimum block-Krylov depth ~ log2(n), as the JAX package's dual_obj
     # takes it (dualbound.py:247)
     k_min_base = max(4, int(np.ceil(np.log2(max(n, 2)))))
@@ -1221,7 +1224,8 @@ def _solve_host(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
                     dp, R, G, y_full, vio_raw, L_val, t(grad_norm), lbfgs,
                     lam, t(sigma), t(cur_gtol), t(stag_tol), steps, k=k,
                     use_armijo=use_armijo, gtol_relative=gtol_rel,
-                    ptol_relative=ptol_rel, lbfgs_compact=lbfgs_compact)
+                    ptol_relative=ptol_rel, lbfgs_compact=lbfgs_compact,
+                    graphs=inner_graphs)
             R, G, y_full, vio_raw, L_val = c.R, c.G, c.y_full, c.vio_raw, \
                 c.L_val
             lbfgs = c.lbfgs

@@ -6,6 +6,8 @@ that has only PyTorch (``--noconftest``: tests/conftest.py sets up JAX):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -666,6 +668,7 @@ def test_cuda_one_rank_nccl_solve(h100):
     from sdplrplus_tpu_torch import SolverConfig
     from sdplrplus_tpu_torch.ops import spmm as spmm_mod
     from sdplrplus_tpu_torch.parallel.spmd import make_mesh
+    from sdplrplus_tpu_torch.solver import inner
     from sdplrplus_tpu_torch.solver.outer import solve
 
     A = problems.synthetic_graph(3000, 8)
@@ -675,20 +678,13 @@ def test_cuda_one_rank_nccl_solve(h100):
                        dtype="float64", printlevel=0, dense_mode=False)
     ref = solve(prob, 8, cfg)
     mesh = make_mesh(1, backend="nccl")
-    spmms = [0]
-    real = spmm_mod.spmm_ell
-
-    def counted(*a, **k):
-        spmms[0] += 1
-        return real(*a, **k)
-
     try:
-        spmm_mod.spmm_ell = counted
-        before = ga.ROWS.launches
+        before = ga.ROWS.launches, spmm_mod.CALLS["spmm_ell"]
+        inner.STATS.clear()
         res = solve(prob, 8, cfg, mesh=mesh)
-        launches = ga.ROWS.launches - before
+        launches = ga.ROWS.launches - before[0]
+        spmms = spmm_mod.CALLS["spmm_ell"] - before[1]
     finally:
-        spmm_mod.spmm_ell = real
         dist.destroy_process_group()
     assert ref["inner_engine"] == ENGINE_FAST
     assert res["inner_engine"] == ENGINE_FAST + "+spmd"
@@ -696,7 +692,9 @@ def test_cuda_one_rank_nccl_solve(h100):
     assert abs(res["obj"] - ref["obj"]) <= 1e-3 * abs(ref["obj"])
     for r_ in (ref, res):
         assert r_["primal_vio"] <= 1e-3 and r_["rel_duality_gap"] <= 1e-3
-    assert launches == spmms[0] > 0
+    # the inner loop ran through the captured chunk, NCCL calls inside
+    assert inner.STATS["replays"] == inner.STATS["chunks"] > 0
+    assert launches == spmms > 0
 
 
 @pytest.mark.cuda
@@ -704,10 +702,14 @@ def test_cuda_two_rank_gloo_steps_equal_one_rank(h100, tmp_path):
     """Two ranks sharing the card over gloo (collectives staged through
     host memory): 25 fast-diagonal steps with the halo exchange equal the
     one-rank run on the card (R to 1e-9, L and grad_norm to 1e-9
-    relative), each rank launching gather_rows once per SpMM (1 + 25)."""
+    relative), each rank launching gather_rows once per SpMM: one for the
+    carried CX, then one per step run, the 25 taken in eager chunks of K
+    masked steps (a gloo mesh is not captured)."""
     import math
 
     import torch_spmd_cases as cases
+
+    from sdplrplus_tpu_torch.solver.inner import CHUNK_K
 
     got = cases.launch_ranks(str(tmp_path), 2, ["halo_inner"],
                              device="cuda")["halo_inner"]
@@ -723,7 +725,7 @@ def test_cuda_two_rank_gloo_steps_equal_one_rank(h100, tmp_path):
                        lam, 2.0, 0.0, -math.inf, 25, k=4, use_armijo=False,
                        gtol_relative=True, ptol_relative=True)
     assert got["halo"] and got["steps"] == c.steps == 25
-    assert got["gather_rows"] == 26
+    assert got["gather_rows"] == 1 + CHUNK_K * math.ceil(25 / CHUNK_K)
     np.testing.assert_allclose(np.asarray(got["R"]), c.R.cpu().numpy(),
                                rtol=0, atol=1e-9)
     for key, w in (("L", float(c.L_val)), ("grad_norm", float(c.grad_norm))):
@@ -775,3 +777,147 @@ def test_cuda_one_rank_nccl_entry_step_graph(h100):
     assert captured, "the entry step was not captured"
     assert abs(-res["obj"] - 24.0) <= 24.0 * 1e-2
     assert res["primal_vio"] <= 1e-2
+
+
+def _chunk_case(engine, dtype=torch.float64, device="cuda"):
+    """(dp, R, λ, use_armijo) on ``device``: MaxCut of a 200-node graph
+    with C dense or sparse (the fast-diagonal engine, ELL with tier-2
+    rows), μ-conductance (0.1) of the same graph at the feasible scale
+    (Armijo), or θ of a 40-node graph outside entry mode (general)."""
+    A = problems.make_random_graph(200, 0.5, seed=3)
+    rng = np.random.default_rng(0)
+    if engine == "general":
+        A = problems.make_random_graph(40, 0.4, seed=3)
+        C, As, b = problems.lovasz_theta(A)
+        cp = compile_problem(SDPProblem(C, As, np.asarray(b, float), None),
+                             entry=False, dense=False)
+    elif engine == "fast-diag-armijo":
+        C, As, b, ct = problems.mu_conductance_ineq(A, 0.1)
+        cp = compile_problem(SDPProblem(C, As, np.asarray(b, float), ct))
+    else:
+        C, As, b = problems.maxcut(A)
+        cp = compile_problem(SDPProblem(C, As, np.asarray(b, float), None),
+                             dense=engine == "dense")
+    dp = to_device(cp, dtype, device)
+    n, r = A.shape[0], 6
+    Rn = rng.uniform(-1, 1, (n, r))
+    if engine == "fast-diag-armijo":    # d-centred, ⟨D, X⟩ = 1
+        d = np.asarray(A.sum(axis=1)).reshape(-1)
+        Rn -= np.outer(np.ones(n), d @ Rn / d.sum())
+        Rn /= np.sqrt(np.sum(d * np.sum(Rn * Rn, axis=1)))
+    R = np.zeros((dp.n_pad, r))
+    R[:n] = Rn
+    lam = np.minimum(0.05 * rng.standard_normal(dp.m),
+                     dp.lam_ub.cpu().numpy())
+    t = lambda x: torch.tensor(x, dtype=dtype, device=device)
+    return dp, t(R), t(lam), engine == "fast-diag-armijo"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["dense", "fast-diag", "fast-diag-armijo",
+                                    "general"])
+def test_inner_chunk_graph_matches_the_eager_program(h100, engine):
+    """The inner loop's chunk program captured as a CUDA graph against the
+    same masked program run eagerly (twice), in float64: 25 steps (K does
+    not divide 25), then through the same graph with new multipliers and
+    a gradient tolerance that trips inside a replay (at a step whose norm
+    is a new minimum by 1e-3). Steps, the stagnation flag and the ring
+    head equal; R, G, the violations, L and the ring bit-equal on the
+    dense engine, elsewhere within a tolerance of each one's largest
+    entry (or ten times the two eager runs' difference, where larger):
+    the ELL SpMM's tier-2 index_add adds with atomics, whose order varies
+    from run to run, graph and eager alike, and each AL's stiffness
+    amplifies that over 25 steps: 1e-10 on MaxCut, 1e-9 on μ-conductance
+    (1.8e-11 measured on the card), 1e-12 on θ (bit-equal measured)."""
+    from sdplrplus_tpu_torch.solver import inner
+    from sdplrplus_tpu_torch.solver.al import al_value_grad
+
+    dp, R, lam, arm = _chunk_case(engine)
+    graphs = inner.InnerGraphs()
+    t = lambda x: torch.tensor(x, dtype=torch.float64, device="cuda")
+    tol = {"fast-diag": 1e-10, "fast-diag-armijo": 1e-9}.get(engine, 1e-12)
+
+    def rel(a, b):
+        fields = lambda c: (c.R, c.G, c.vio_raw, c.L_val, c.lbfgs.s_hist,
+                            c.lbfgs.y_hist, c.lbfgs.rho, c.lbfgs.sty,
+                            c.lbfgs.yty)
+        return max(float((x - y).abs().max())
+                   / max(float(y.abs().max()), 1e-300)
+                   for x, y in zip(fields(a), fields(b)))
+
+    def both(lam, gtol, steps=25):
+        L, vio, G, y, gn, _ = al_value_grad(dp, R, lam, t(2.0), True, True)
+        out = []
+        for graph in (True, False, False):
+            inner.STATS.clear()
+            c, _ = inner.inner_chunk(
+                dp, R, G, y, vio, L, gn,
+                lbfgs_init(4, dp.n_pad, R.shape[1], torch.float64, "cuda"),
+                lam, t(2.0), gtol, float("-inf"), steps, k=4,
+                use_armijo=arm, gtol_relative=True, ptol_relative=True,
+                graph=graph, graphs=graphs)
+            out.append((c, collections.Counter(inner.STATS)))
+        (cg, sg), (ce, se), (ce2, _) = out
+        assert sg["replays"] == se["chunks"] > 0 and se["replays"] == 0
+        for c in (ce, ce2):
+            assert (cg.steps, cg.stagnated, cg.lbfgs.head) == \
+                (c.steps, c.stagnated, c.lbfgs.head)
+        if engine == "dense":
+            assert rel(cg, ce) == 0.0 and rel(ce2, ce) == 0.0
+        else:
+            assert min(rel(cg, ce), rel(cg, ce2)) <= max(
+                tol, 10.0 * rel(ce2, ce))
+        return cg, sg
+
+    c1, s1 = both(lam, -1.0)
+    assert c1.steps == 25 and s1["captures"] == 1
+    # the eager norms of steps 1..20 at the new multipliers; the tolerance
+    # just above the last new minimum (by 1e-3) at a step K does not divide
+    lam2 = 0.5 * lam
+    L, vio, G, y, gn, _ = al_value_grad(dp, R, lam2, t(2.0), True, True)
+    ic = inner.InnerCarry(
+        R=R, G=G, y_full=y, vio_raw=vio, L_val=L, grad_norm=gn,
+        lbfgs=lbfgs_init(4, dp.n_pad, R.shape[1], torch.float64, "cuda"),
+        steps=0, stagnated=False,
+        CX=spmm_C(dp, R) if engine.startswith("fast-diag") else None)
+    norms = [float(gn)]
+    for _ in range(20):
+        ic = inner.inner_step(dp, ic, lam2, t(2.0), float("-inf"), k=4,
+                              use_armijo=arm, gtol_relative=True,
+                              use_cx=ic.CX is not None)
+        norms.append(float(ic.grad_norm))
+    trip = [s for s in range(1, 21) if s % inner.CHUNK_K
+            and norms[s] * (1 + 1e-3) < min(norms[:s])][-1]
+    c2, s2 = both(lam2, norms[trip] * (1 + 1e-6))
+    assert s2["captures"] == 0 and c2.steps == trip
+
+
+@pytest.mark.cuda
+def test_launch_counters_count_every_replay(h100):
+    """gather_rows launches and ELL SpMMs under replay: each replay adds
+    what one capture launched (K steps, one SpMM each, on the
+    fast-diagonal engine), the capture itself adds nothing and its warm-up
+    steps are real launches. Through the graph and eagerly both counters
+    equal 1 (the carried CX) + the steps run on the device."""
+    from sdplrplus_tpu_torch.ops import spmm as spmm_mod
+    from sdplrplus_tpu_torch.solver import inner
+    from sdplrplus_tpu_torch.solver.al import al_value_grad
+
+    dp, R, lam, _ = _chunk_case("fast-diag")
+    t = lambda x: torch.tensor(x, dtype=torch.float64, device="cuda")
+    L, vio, G, y, gn, _ = al_value_grad(dp, R, lam, t(2.0), True, True)
+    K = inner.CHUNK_K
+    for graph in (True, False):
+        inner.STATS.clear()
+        rows, spmms = ga.ROWS.launches, spmm_mod.CALLS["spmm_ell"]
+        c, _ = inner.inner_chunk(
+            dp, R, G, y, vio, L, gn,
+            lbfgs_init(4, dp.n_pad, R.shape[1], torch.float64, "cuda"), lam,
+            t(2.0), -1.0, float("-inf"), 13, k=4, use_armijo=False,
+            gtol_relative=True, ptol_relative=True, graph=graph)
+        st = inner.STATS
+        assert c.steps == 13 and st["chunks"] == -(-13 // K)
+        run = st["steps"] + st["masked"] + st["warmup_steps"]
+        assert st["warmup_steps"] == (inner.WARMUP_STEPS if graph else 0)
+        assert ga.ROWS.launches - rows == 1 + run
+        assert spmm_mod.CALLS["spmm_ell"] - spmms == 1 + run
