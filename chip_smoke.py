@@ -400,20 +400,21 @@ def device_profile(fn, nsteps):
             [(k[:60], round(v / nsteps, 2)) for k, v in top])
 
 
-def chunk_report(stats, K, seconds=None):
+def chunk_report(stats, K, seconds=None, boundaries=0):
     """A run's inner-loop chunk counts (solver/inner.STATS) as one dict:
     K, steps taken, chunks and graph replays, host reads per step against
     the bound 1/K + major boundaries / steps (each activation of s steps
-    costs ⌈s/K⌉ ≤ s/K + 1 reads), masked steps, captures and their
-    warm-up steps, the state machine's branch reads (one per body), the
-    steps run on the device (taken, masked and warm-up: each launches
-    its kernels) and, given the run's seconds, ms per iteration."""
+    costs ⌈s/K⌉ ≤ s/K + 1 reads; ``boundaries`` is the solve's
+    ``majoriter``), masked steps, captures and their warm-up steps, the
+    state machine's branch reads (one per body), the steps run on the
+    device (taken, masked and warm-up: each launches its kernels) and,
+    given the run's seconds, ms per iteration."""
     st = collections.Counter(stats)
     steps = st["steps"]
     rep = dict(K=K, steps=steps, chunks=st["chunks"], replays=st["replays"],
                reads=st["reads"], masked=st["masked"],
                captures=st["captures"], warmup_steps=st["warmup_steps"],
-               boundaries=st["boundaries"], branch_reads=st["branch_reads"])
+               boundaries=boundaries, branch_reads=st["branch_reads"])
     rep["device_steps"] = steps + rep["masked"] + rep["warmup_steps"]
     rep["reads_per_step"] = rep["reads"] / max(steps, 1)
     rep["read_bound"] = 1.0 / K + rep["boundaries"] / max(steps, 1)
@@ -807,7 +808,7 @@ def general_phase(n, k, maxtime, zero_counts, smi, dev="cuda",
     solve_s = time.time() - t0
     launches = {kk.name: kk.launches for kk in (mk.K1, mk.K2) + ga.KERNELS}
     chunk = chunk_report(inner_mod.STATS, inner_mod.chunk_steps(dev),
-                         solve_s)
+                         solve_s, res["majoriter"])
     derived = 2 * chunk["device_steps"] + 2 * fg_calls[0] + passes[0]
     # the violations 𝒜(RRᵀ) − b of the returned factor, in float64 on the
     # host, in the user's scale (ptol relative: over ‖b‖)
@@ -1263,7 +1264,7 @@ def spmd_worker_one_rank(dev_type="cuda", n=20000):
     secs = time.time() - t0
     calls = dict(comm.CALLS)
     chunk = chunk_report(inner_mod.STATS, inner_mod.chunk_steps(dev_type),
-                         secs)
+                         secs, res["majoriter"])
     # the calls' own cost at world size 1: a 0-dim psum read on the host
     # (as the loop reads its scalars) and an all-gather of the factor
     x = torch.ones((), dtype=torch.float32, device=mesh.device)
@@ -2624,7 +2625,8 @@ def main():
     syn_s = time.time() - t0
     syn_launches = {k.name: k.launches for k in (mk.K1, mk.K2) + ga.KERNELS}
     syn_spmms = spmm_mod.CALLS["spmm_ell"]
-    syn_chunk = chunk_report(inner_mod.STATS, inner_mod.CHUNK_K, syn_s)
+    syn_chunk = chunk_report(inner_mod.STATS, inner_mod.CHUNK_K, syn_s,
+                             res3["majoriter"])
     major_mod.block_lanczos_min_eig = real_block
     major_mod.lanczos_alpha_beta_impl, \
         major_mod.lanczos_alpha_beta_reorth_impl = real_scalar
@@ -2767,7 +2769,7 @@ def main():
             rk = sdplr(C_syn, As_syn, b_syn, RANK, **kw3)
             torch.cuda.synchronize()
             sk = time.time() - t0
-            rep = chunk_report(inner_mod.STATS, Kc, sk)
+            rep = chunk_report(inner_mod.STATS, Kc, sk, rk["majoriter"])
         finally:
             inner_mod.CHUNK_K = K0
         assert rk["primal_vio"] <= 1e-2 and rk["rel_duality_gap"] <= 1e-2

@@ -69,6 +69,7 @@ from ..ops.forward import A_linesearch_cd
 from ..ops.spmm import spmm_C
 from ..parallel import comm as _comm
 from ..parallel.comm import dp_psum
+from ..utils.timing import span
 from .al import capped_vio
 from .lbfgs import LBFGSState, lbfgs_direction, lbfgs_push
 from .linesearch import (
@@ -87,8 +88,8 @@ SIGMA_CAP = 2.0 ** 100  # σ at or above it is a failed state
 
 # "steps" taken, "chunks" run, host "reads", "masked" steps (run in a
 # chunk, not taken), graph "replays", "captures", "warmup_steps"; and,
-# counted by solver/major.py, major "boundaries" and the state machine's
-# "branch_reads" (one per body: an activation or a boundary)
+# counted by solver/major.py, the state machine's "branch_reads" (one per
+# body: an activation or a boundary)
 STATS = collections.Counter()
 
 
@@ -328,8 +329,9 @@ class _InnerGraph:
         self.ins = [x.clone() for x in (lam, sigma, stag_tol, cur_gtol,
                                         max_steps)]
         self.status = torch.zeros(4, dtype=torch.int64, device=c.R.device)
-        self._warm_up()
-        self.per_replay = launches_of(self._capture)
+        with span("sdplr.inner.capture"):
+            self._warm_up()
+            self.per_replay = launches_of(self._capture)
         STATS["captures"] += 1
 
     def _warm_up(self):

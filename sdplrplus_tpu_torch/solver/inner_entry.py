@@ -43,6 +43,7 @@ from ..ops.entrymask import (
     vio_norm_entry,
 )
 from ..parallel.comm import dp_psum
+from ..utils.timing import span
 from .inner import InnerCarry
 from .lbfgs import LBFGSState, lbfgs_direction, lbfgs_push
 
@@ -140,15 +141,16 @@ class _EntryGraph:
         self.cont = torch.zeros((), dtype=torch.bool, device=c.R.device)
         # warm-up on a side stream (library handles and workspaces are
         # made outside the capture), then capture one step
-        side = torch.cuda.Stream(device=c.R.device)
-        side.wait_stream(torch.cuda.current_stream(c.R.device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
+        with span("sdplr.inner.capture"):
+            side = torch.cuda.Stream(device=c.R.device)
+            side.wait_stream(torch.cuda.current_stream(c.R.device))
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self._body()
+            torch.cuda.current_stream(c.R.device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
                 self._body()
-        torch.cuda.current_stream(c.R.device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._body()
 
     def _body(self):
         n = entry_step(self.dp, self.c, self.Lam_ew, self.lam_ex, self.sigma,

@@ -52,6 +52,7 @@ from ..ops.lanczos import (
     tridiag_min_eig_device_certified,
 )
 from ..parallel.comm import dp_psum, local_rows, row_offset
+from ..utils.timing import span
 from .al import al_value_grad, al_value_grad_cx, capped_vio
 from .inner import STATS as INNER_STATS
 from .inner import SIGMA_CAP, InnerCarry, InnerGraphs, run_activation
@@ -284,9 +285,11 @@ def major_chunk(
         best_lam, max_dual, feas_count = c.best_lam, c.max_dual, c.feas_count
         dual_passes = c.dual_passes
         if strict:
-            dual, passes, y_head = dual_bound(c)
-            # `dual > max_dual` so a NaN dual never poisons the running best
-            better = bool(dual > c.max_dual)
+            with span("sdplr.dual_bound"):
+                dual, passes, y_head = dual_bound(c)
+                # `dual > max_dual` so a NaN dual never poisons the
+                # running best
+                better = bool(dual > c.max_dual)
             if better:
                 best_lam, max_dual = -y_head, dual
             feas_count += 1
@@ -331,7 +334,6 @@ def major_chunk(
                                    cur_gtol=1.0 / sigma2)
 
     def major_branch(c: MajorCarry) -> MajorCarry:
-        INNER_STATS["boundaries"] += 1
         vio_norm = _vio_norm(dp, c.ic.vio_raw, pscale)
         if bool(vio_norm <= c.cur_ptol):
             c = feasible_branch(c, vio_norm)
@@ -357,10 +359,16 @@ def major_chunk(
         return dataclasses.replace(c, ic=ic2)
 
     while cond(carry):
-        healthy, inner_active = state_flags(carry)
+        with span("sdplr.state_read"):
+            healthy, inner_active = state_flags(carry)
         if not healthy:
             break
-        carry = inner_branch(carry) if inner_active else major_branch(carry)
+        if inner_active:
+            with span("sdplr.inner"):
+                carry = inner_branch(carry)
+        else:
+            with span("sdplr.boundary"):
+                carry = major_branch(carry)
     return carry, _vio_norm(dp, carry.ic.vio_raw, pscale)
 
 

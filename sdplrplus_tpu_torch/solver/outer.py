@@ -28,7 +28,8 @@ call, and the host-driven loop (``_solve_host``, ``fused_outer=False``),
 which reads the state on the host after every inner chunk. Both write a
 checkpoint at major boundaries when ``checkpoint_path`` is set
 (utils/checkpoint.py); ``profile_dir`` records the solve with
-torch.profiler.
+torch.profiler. Both open the same named host spans where they do the
+same work (utils/timing.SPANS), which a running profiler records.
 
 Multi-device solving (``devices > 1``, or ``solve(..., mesh=...)``)
 row-shards the solve as the JAX package's shard_map path does
@@ -64,6 +65,7 @@ from ..ops.lanczos import bucket_q_max, lanczos_q
 from ..problem import SDPProblem
 from ..utils.checkpoint import save_checkpoint
 from ..utils.printing import print_heading, print_intermediate
+from ..utils.timing import span
 from .dualbound import dimacs_errors, dual_obj
 from .al import al_value_grad
 from .inner import InnerGraphs, inner_chunk
@@ -371,8 +373,9 @@ def sdplr(C, As, b, r: int, *, constraint_types=None,
     src/sdplr.jl:91-138). Unknown keyword arguments raise. Runs on the
     card unless ``device="cpu"`` is passed."""
     cfg = (config or SolverConfig()).copy_with(**kwargs)
-    prob = SDPProblem(C, list(As), np.asarray(b, dtype=np.float64),
-                      constraint_types)
+    with span("sdplr.problem"):
+        prob = SDPProblem(C, list(As), np.asarray(b, dtype=np.float64),
+                          constraint_types)
     return solve(prob, r, cfg)
 
 
@@ -444,45 +447,59 @@ def solve(prob: SDPProblem, r: int, config: SolverConfig,
         if mesh.size != nd:
             raise ValueError(f"devices={nd} but the process group has "
                              f"{mesh.size} rank(s)")
-    device = resolve_device(config) if mesh is None else mesh.device
-    dtype = resolve_dtype(config)
-    if config.printlevel > 0:
-        print_heading(True)
+    return _profiled(config, lambda: _solve_here(prob, r, config, mesh))
 
-    prob, config, rescale_f = _maybe_rescale_entry(prob, config)
-    t_pre = time.time()
-    if mesh is None:
-        cp = compile_problem(prob, dense=config.dense_mode,
-                             entry=config.entry_mode)
-        dp = to_device(cp, dtype, device)
-    else:
-        # this rank's problem only (parallel/shardmap.shardmap_problem)
-        from ..parallel.shardmap import n_shards_pad, shardmap_problem
 
-        pad = n_shards_pad(mesh.size)
-        cp = compile_problem(prob, dense=config.dense_mode,
-                             entry=config.entry_mode, n_shards=mesh.size,
-                             row_pad=pad, nnz_pad=pad)
-        dp = shardmap_problem(cp, dtype, mesh)
-    del cp
-    preprocess_time = time.time() - t_pre
+def _solve_here(prob: SDPProblem, r: int, config: SolverConfig,
+                mesh) -> dict:
+    """One solve in this process (on a mesh, this rank's part), in the
+    span ``sdplr.solve``: the problem compiled and put on the device,
+    the drivers, the result in the user's scale."""
+    with span("sdplr.solve"):
+        device = resolve_device(config) if mesh is None else mesh.device
+        dtype = resolve_dtype(config)
+        if config.printlevel > 0:
+            print_heading(True)
 
-    result = _profiled(config, lambda: _solve(prob, dp, r, config, dtype))
-    result["preprocess_time"] = preprocess_time
-    result["totaltime"] += preprocess_time
-    result["devices"] = 1 if mesh is None else mesh.size
-    if rescale_f != 1.0:
-        # back to the user's scale: X = X'/f, so R = R'/√f; S = f·S', so
-        # y = f·y'; objective and dual values and relative norms are
-        # unchanged by construction
-        sf = float(np.sqrt(rescale_f))
-        for key in ("R", "Rt", "R0", "Rt0"):
-            result[key] = np.asarray(result[key]) / sf
-        for key in ("lambda", "lambda_last", "lambda0"):
-            result[key] = np.asarray(result[key]) * rescale_f
-        result["entry_rescale_f"] = rescale_f
-    if config.printlevel > 0:
-        print_heading(False)
+        prob, config, rescale_f = _maybe_rescale_entry(prob, config)
+        with span("sdplr.preprocess") as pre:
+            if mesh is None:
+                with span("sdplr.preprocess.compile"):
+                    cp = compile_problem(prob, dense=config.dense_mode,
+                                         entry=config.entry_mode)
+                with span("sdplr.preprocess.upload"):
+                    dp = to_device(cp, dtype, device)
+            else:
+                # this rank's problem only
+                # (parallel/shardmap.shardmap_problem)
+                from ..parallel.shardmap import n_shards_pad, shardmap_problem
+
+                pad = n_shards_pad(mesh.size)
+                with span("sdplr.preprocess.compile"):
+                    cp = compile_problem(prob, dense=config.dense_mode,
+                                         entry=config.entry_mode,
+                                         n_shards=mesh.size, row_pad=pad,
+                                         nnz_pad=pad)
+                with span("sdplr.preprocess.upload"):
+                    dp = shardmap_problem(cp, dtype, mesh)
+            del cp
+
+        result = _solve(prob, dp, r, config, dtype)
+        result["preprocess_time"] = pre.seconds
+        result["totaltime"] += pre.seconds
+        result["devices"] = 1 if mesh is None else mesh.size
+        if rescale_f != 1.0:
+            # back to the user's scale: X = X'/f, so R = R'/√f; S = f·S',
+            # so y = f·y'; objective and dual values and relative norms
+            # are unchanged by construction
+            sf = float(np.sqrt(rescale_f))
+            for key in ("R", "Rt", "R0", "Rt0"):
+                result[key] = np.asarray(result[key]) / sf
+            for key in ("lambda", "lambda_last", "lambda0"):
+                result[key] = np.asarray(result[key]) * rescale_f
+            result["entry_rescale_f"] = rescale_f
+        if config.printlevel > 0:
+            print_heading(False)
     return result
 
 
@@ -559,7 +576,8 @@ def solve_model(model: CustomModel, r: int,
                          "be 1)")
     if cfg.printlevel > 0:
         print_heading(True)
-    result = _solve(model, model, r, cfg, model.dtype)
+    with span("sdplr.solve"):
+        result = _solve(model, model, r, cfg, model.dtype)
     result["preprocess_time"] = 0.0
     result["devices"] = 1
     if cfg.printlevel > 0:
@@ -570,8 +588,9 @@ def solve_model(model: CustomModel, r: int,
 def _profiled(config: SolverConfig, fn) -> dict:
     """``fn()``, under torch.profiler when ``config.profile_dir`` is set
     (the JAX package's jax.profiler.trace, outer.py:422-425): the host's
-    operators and, on the card, its kernels, written into the directory
-    as a Chrome trace, whose path the result gives as ``profile_trace``."""
+    operators and the solver's ``sdplr.*`` spans and, on the card, its
+    kernels, written into the directory as a Chrome trace, whose path the
+    result gives as ``profile_trace``."""
     if config.profile_dir is None:
         return fn()
     from torch.profiler import ProfilerActivity, profile
@@ -648,44 +667,46 @@ def _solve(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
             return res
         from .dualrefine import refine_dual
 
-        t_ref = time.time()
-        b64 = np.asarray(prob.b, np.float64)
-        try:
-            y_ref, dual_ref, _, _ = refine_dual(
-                prob.C, prob.As, b64, -np.asarray(res["lambda"], np.float64),
-                float(config.prior_trace_bound), iters=6,
-                k_eig=min(96, max(8, prob.n - 2)),
-                verbose=config.printlevel > 1)
-            obj_c = res.get("obj_feasible")
-            obj_c = float(res["obj"]) if obj_c is None else float(obj_c)
-            if (_final_gap(obj_c, dual_ref, True) > config.objtol
-                    and config.maxtime - float(res["totaltime"])
-                    - (time.time() - t_ref) > 60.0):
-                # escalate once: wider eigenband + deeper LSQR
-                y2, d2, _, _ = refine_dual(
-                    prob.C, prob.As, b64, y_ref,
-                    float(config.prior_trace_bound), iters=10,
-                    k_eig=min(160, max(8, prob.n - 2)), lsqr_iters=300,
+        with span("sdplr.polish"):
+            t_ref = time.time()
+            b64 = np.asarray(prob.b, np.float64)
+            try:
+                y_ref, dual_ref, _, _ = refine_dual(
+                    prob.C, prob.As, b64,
+                    -np.asarray(res["lambda"], np.float64),
+                    float(config.prior_trace_bound), iters=6,
+                    k_eig=min(96, max(8, prob.n - 2)),
                     verbose=config.printlevel > 1)
-                if d2 > dual_ref:
-                    y_ref, dual_ref = y2, d2
-            if dual_ref > float(res["max_dual_value"]):
-                gap_ref = _final_gap(obj_c, dual_ref, True)
-                res["max_dual_value"] = float(dual_ref)
-                res["lambda"] = -y_ref
-                res["rel_duality_gap"] = gap_ref
-                res["min_duality_gap"] = min(float(res["min_duality_gap"]),
-                                             gap_ref)
-                res["dual_refined"] = True
-                if config.printlevel > 0:
-                    print(f"host f64 dual polish: gap {gap_now:.3e} -> "
-                          f"{gap_ref:.3e} ({time.time() - t_ref:.1f} s)")
-            res["dual_refine_time"] = time.time() - t_ref
-            res["totaltime"] += res["dual_refine_time"]
-        except Exception as e:
-            # best effort, as in the JAX package: the solve's own
-            # certificate stands (ARPACK refuses n < 3, for one)
-            res["dual_refine_error"] = f"{type(e).__name__}: {e}"
+                obj_c = res.get("obj_feasible")
+                obj_c = float(res["obj"]) if obj_c is None else float(obj_c)
+                if (_final_gap(obj_c, dual_ref, True) > config.objtol
+                        and config.maxtime - float(res["totaltime"])
+                        - (time.time() - t_ref) > 60.0):
+                    # escalate once: wider eigenband + deeper LSQR
+                    y2, d2, _, _ = refine_dual(
+                        prob.C, prob.As, b64, y_ref,
+                        float(config.prior_trace_bound), iters=10,
+                        k_eig=min(160, max(8, prob.n - 2)), lsqr_iters=300,
+                        verbose=config.printlevel > 1)
+                    if d2 > dual_ref:
+                        y_ref, dual_ref = y2, d2
+                if dual_ref > float(res["max_dual_value"]):
+                    gap_ref = _final_gap(obj_c, dual_ref, True)
+                    res["max_dual_value"] = float(dual_ref)
+                    res["lambda"] = -y_ref
+                    res["rel_duality_gap"] = gap_ref
+                    res["min_duality_gap"] = min(
+                        float(res["min_duality_gap"]), gap_ref)
+                    res["dual_refined"] = True
+                    if config.printlevel > 0:
+                        print(f"host f64 dual polish: gap {gap_now:.3e} -> "
+                              f"{gap_ref:.3e} ({time.time() - t_ref:.1f} s)")
+                res["dual_refine_time"] = time.time() - t_ref
+                res["totaltime"] += res["dual_refine_time"]
+            except Exception as e:
+                # best effort, as in the JAX package: the solve's own
+                # certificate stands (ARPACK refuses n < 3, for one)
+                res["dual_refine_error"] = f"{type(e).__name__}: {e}"
         return res
 
     result = agreed(_dual_polish, result)
@@ -747,11 +768,6 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
     starttime = clock()
     lastprint = starttime
 
-    R, lam = _init_vars(prob, dp, r, config, dtype, rng)
-    R0_np = R[:n].cpu().numpy()
-    lam0_np = lam.cpu().numpy()
-    R = local_rows(dp, R)
-
     k = int(config.numlbfgsvecs)
     use_armijo = dp.has_inequalities
     gtol_rel = config.gtol_mode == "relative"
@@ -759,8 +775,6 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
     objtol_rel = config.objtol_mode == "relative"
     stag_tol = _stagnation_tol(config, dtype)
     sigma0 = float(config.sigma0)
-
-    mega_meta, mega_data = _mega_setup(dp, r, k, use_armijo, dtype, config)
 
     def blk_for(r_now: int, q_raw: int = 0) -> tuple:
         return _blk_for(config.lanczos_block, config.eigval_highprecision,
@@ -787,7 +801,14 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
             gtol_relative=gtol_rel, ptol_relative=ptol_rel,
             with_cx=cx_for(r))
 
-    carry = fresh_carry(R, lam)
+    with span("sdplr.setup"):
+        R, lam = _init_vars(prob, dp, r, config, dtype, rng)
+        R0_np = R[:n].cpu().numpy()
+        lam0_np = lam.cpu().numpy()
+        R = local_rows(dp, R)
+        mega_meta, mega_data = _mega_setup(dp, r, k, use_armijo, dtype,
+                                           config)
+        carry = fresh_carry(R, lam)
     base_total = 0   # inner steps before the current carry lifetime
     base_major = 0   # major boundaries before the current lifetime
     q_boost = 1      # Lanczos budget escalation once r hits the BP cap
@@ -949,23 +970,26 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
             tried_polish = False
             if config.printlevel > 0:
                 print(f"rank doubled, new rank is {r}.")
-            if config.rank_update_mode == "warm" and config.init_func is None:
-                R = local_rows(dp, _warm_vars(dp, dp_full(dp, carry.ic.R),
-                                              r, rng, dtype))
-                newc = init_major_carry(
-                    dp, R, carry.lam, float(carry.sigma),
-                    float(carry.cur_ptol), float(carry.cur_gtol), gen,
-                    lbfgs_init(k, n_loc(dp), r, dtype, dp.device),
-                    config.rankupd_tol,
-                    gtol_relative=gtol_rel, ptol_relative=ptol_rel,
-                    with_cx=cx_for(r))
-                # dual values and the gap history stay valid across ranks
-                carry = dataclasses.replace(
-                    newc, best_lam=carry.best_lam, max_dual=carry.max_dual,
-                    min_gap=carry.min_gap)
-            else:
-                R, lam = _init_vars(prob, dp, r, config, dtype, rng)
-                carry = fresh_carry(local_rows(dp, R), lam)
+            with span("sdplr.rank_double"):
+                if (config.rank_update_mode == "warm"
+                        and config.init_func is None):
+                    R = local_rows(dp, _warm_vars(
+                        dp, dp_full(dp, carry.ic.R), r, rng, dtype))
+                    newc = init_major_carry(
+                        dp, R, carry.lam, float(carry.sigma),
+                        float(carry.cur_ptol), float(carry.cur_gtol), gen,
+                        lbfgs_init(k, n_loc(dp), r, dtype, dp.device),
+                        config.rankupd_tol,
+                        gtol_relative=gtol_rel, ptol_relative=ptol_rel,
+                        with_cx=cx_for(r))
+                    # dual values and the gap history stay valid across
+                    # ranks
+                    carry = dataclasses.replace(
+                        newc, best_lam=carry.best_lam,
+                        max_dual=carry.max_dual, min_gap=carry.min_gap)
+                else:
+                    R, lam = _init_vars(prob, dp, r, config, dtype, rng)
+                    carry = fresh_carry(local_rows(dp, R), lam)
             continue
         if now - starttime > config.maxtime:
             print("Warning: time limit exceeded. Stop optimizing.")
@@ -979,107 +1003,111 @@ def _solve_fused(prob, dp: DeviceProblem, r: int, config: SolverConfig,
             break
 
     totaltime = clock() - starttime
-    R, lam, vio_raw = carry.ic.R, carry.lam, carry.ic.vio_raw
-    grad_norm = float(carry.ic.grad_norm)
-    max_dual_f = float(carry.max_dual)
-    best_lam_np = carry.best_lam.cpu().numpy().astype(np.float64)
-    feas = carry.feas_count
-    extra_dual_passes = 0
-    if feas == 0 and config.objtol != np.inf and m > 0:
-        # the run never reached a strict boundary (timeout / maxiter /
-        # stall): still report a (weak) dual bound from the final iterate
-        blk_f = blk_for(r)
-        obj_now = abs(float(vio_raw[m]))
-        mt_f = 0.25 * config.objtol * (
-            max(obj_now, 1e-8) if objtol_rel else 1.0
-        ) / max(config.prior_trace_bound, 1.0)
-        dv, _, y_d = dual_obj(
-            dp, lam, carry.sigma, vio_raw, config.prior_trace_bound,
-            max(base_total + carry.ic.steps, 1), gen,
-            highprecision=config.eigval_highprecision,
-            safeguard=config.dual_safeguard,
-            block=blk_f if blk_f[0] else None, margin_target=mt_f,
-            R_seed=R, k_min=min(k_min_base, blk_f[1]))
-        if float(dv) > max_dual_f:
-            max_dual_f = float(dv)
-            best_lam_np = -y_d[:m].cpu().numpy().astype(np.float64)
-        feas = 1
-        extra_dual_passes = blk_f[1] if blk_f[0] else 1024
+    with span("sdplr.finish"):
+        R, lam, vio_raw = carry.ic.R, carry.lam, carry.ic.vio_raw
+        grad_norm = float(carry.ic.grad_norm)
+        max_dual_f = float(carry.max_dual)
+        best_lam_np = carry.best_lam.cpu().numpy().astype(np.float64)
+        feas = carry.feas_count
+        extra_dual_passes = 0
+        if feas == 0 and config.objtol != np.inf and m > 0:
+            # the run never reached a strict boundary (timeout / maxiter /
+            # stall): still report a (weak) dual bound from the final iterate
+            blk_f = blk_for(r)
+            obj_now = abs(float(vio_raw[m]))
+            mt_f = 0.25 * config.objtol * (
+                max(obj_now, 1e-8) if objtol_rel else 1.0
+            ) / max(config.prior_trace_bound, 1.0)
+            with span("sdplr.dual_bound"):
+                dv, _, y_d = dual_obj(
+                    dp, lam, carry.sigma, vio_raw, config.prior_trace_bound,
+                    max(base_total + carry.ic.steps, 1), gen,
+                    highprecision=config.eigval_highprecision,
+                    safeguard=config.dual_safeguard,
+                    block=blk_f if blk_f[0] else None, margin_target=mt_f,
+                    R_seed=R, k_min=min(k_min_base, blk_f[1]))
+                dv = float(dv)
+            if dv > max_dual_f:
+                max_dual_f = dv
+                best_lam_np = -y_d[:m].cpu().numpy().astype(np.float64)
+            feas = 1
+            extra_dual_passes = blk_f[1] if blk_f[0] else 1024
 
-    # dual-time attribution from the measured operator-pass count
-    # (outer.py:1013-1049): on the gather-bound engines a Krylov pass of
-    # any lane count costs one ELL SpMM, and an inner iteration one SpMM
-    # (fast-diagonal) or three passes (general: the [R|D] gather of the
-    # line search and the gradient's SpMM, counted as the JAX package's
-    # two line-search products and one adjoint); on the matmul-bound
-    # engines (dense, megakernels, entry-mask) an inner iteration costs
-    # ~3·r units and a Krylov pass its lane count (b or 1)
-    dual_time = 0.0
-    total_steps = base_total + carry.ic.steps
-    dual_passes = carry.dual_passes + extra_dual_passes
-    if dual_passes > 0 and total_steps > 0:
-        engine = _engine_name(dp, bool(mega_kwargs(r)))
-        if engine in (ENGINE_FAST, ENGINE_GENERAL):
-            dual_units = float(dual_passes)
-            primal_units = (1.0 if engine == ENGINE_FAST else 3.0) \
-                * float(total_steps)
+        # dual-time attribution from the measured operator-pass count
+        # (outer.py:1013-1049): on the gather-bound engines a Krylov pass of
+        # any lane count costs one ELL SpMM, and an inner iteration one SpMM
+        # (fast-diagonal) or three passes (general: the [R|D] gather of the
+        # line search and the gradient's SpMM, counted as the JAX package's
+        # two line-search products and one adjoint); on the matmul-bound
+        # engines (dense, megakernels, entry-mask) an inner iteration costs
+        # ~3·r units and a Krylov pass its lane count (b or 1)
+        dual_time = 0.0
+        total_steps = base_total + carry.ic.steps
+        dual_passes = carry.dual_passes + extra_dual_passes
+        if dual_passes > 0 and total_steps > 0:
+            engine = _engine_name(dp, bool(mega_kwargs(r)))
+            if engine in (ENGINE_FAST, ENGINE_GENERAL):
+                dual_units = float(dual_passes)
+                primal_units = (1.0 if engine == ENGINE_FAST else 3.0) \
+                    * float(total_steps)
+            else:
+                lanes = max(blk_for(r)[0], 1)
+                dual_units = float(dual_passes) * float(lanes)
+                primal_units = 3.0 * float(max(r, 1)) * float(total_steps)
+            frac = dual_units / max(dual_units + primal_units, 1e-30)
+            dual_time = min(max(frac * totaltime, 0.0), totaltime)
+
+        t_dimacs = time.time()
+        if config.eval_DIMACS_errs:
+            DIMACS_errs = dimacs_errors(dp, R, lam, vio_raw, vio_raw[m], gen)
         else:
-            lanes = max(blk_for(r)[0], 1)
-            dual_units = float(dual_passes) * float(lanes)
-            primal_units = 3.0 * float(max(r, 1)) * float(total_steps)
-        frac = dual_units / max(dual_units + primal_units, 1e-30)
-        dual_time = min(max(frac * totaltime, 0.0), totaltime)
+            DIMACS_errs = np.zeros(6)
+        dimacs_time = time.time() - t_dimacs
 
-    t_dimacs = time.time()
-    if config.eval_DIMACS_errs:
-        DIMACS_errs = dimacs_errors(dp, R, lam, vio_raw, vio_raw[m], gen)
-    else:
-        DIMACS_errs = np.zeros(6)
-    dimacs_time = time.time() - t_dimacs
-
-    obj = float(vio_raw[m])
-    R_np = dp_full(dp, R)[:n].cpu().numpy().astype(np.float64)
-    obj_feas = _feasible_obj(prob, dp, R_np, vio_raw.cpu().numpy())
-    final_gap = _final_gap(obj if obj_feas is None else obj_feas,
-                           max_dual_f, feas)
-    return {
-        "R": R_np,
-        "Rt": R_np.T,
-        "lambda": best_lam_np,
-        "lambda_last": lam.cpu().numpy().astype(np.float64),
-        "R0": R0_np,
-        "Rt0": R0_np.T,
-        "lambda0": lam0_np,
-        "sigma": float(carry.sigma),
-        "grad_norm": grad_norm,
-        "primal_vio": vio_norm,
-        "obj": obj,
-        "max_dual_value": max_dual_f,
-        "min_duality_gap": float(carry.min_gap),
-        "rel_duality_gap": final_gap,
-        "obj_feasible": obj_feas,
-        "duality_gap": float(carry.last_gap),
-        "totaltime": totaltime,
-        "dual_time": dual_time,
-        "dual_time_estimated": True,  # measured passes × modeled unit cost
-        "dual_passes": dual_passes,
-        "dual_lanczos_time": dual_time,
-        "primaltime": totaltime - dual_time,
-        "DIMACS_time": dimacs_time,
-        "iter": total_steps,
-        "majoriter": base_major + carry.majoriters,
-        "dual_bounds_computed": feas,
-        "DIMACS_errs": np.asarray(DIMACS_errs),
-        "ptol": config.ptol,
-        "objtol": config.objtol,
-        "fprec": config.fprec,
-        "rankupd_tol": config.rankupd_tol,
-        "r": r,
-        "timed_out": timed_out,
-        "inner_engine": _engine_name(dp, bool(mega_kwargs(r))) + (
-            "" if mesh is None else engine_suffix(dp)),
-        "dtype": str(dtype).replace("torch.", ""),
-    }
+        obj = float(vio_raw[m])
+        R_np = dp_full(dp, R)[:n].cpu().numpy().astype(np.float64)
+        obj_feas = _feasible_obj(prob, dp, R_np, vio_raw.cpu().numpy())
+        final_gap = _final_gap(obj if obj_feas is None else obj_feas,
+                               max_dual_f, feas)
+        return {
+            "R": R_np,
+            "Rt": R_np.T,
+            "lambda": best_lam_np,
+            "lambda_last": lam.cpu().numpy().astype(np.float64),
+            "R0": R0_np,
+            "Rt0": R0_np.T,
+            "lambda0": lam0_np,
+            "sigma": float(carry.sigma),
+            "grad_norm": grad_norm,
+            "primal_vio": vio_norm,
+            "obj": obj,
+            "max_dual_value": max_dual_f,
+            "min_duality_gap": float(carry.min_gap),
+            "rel_duality_gap": final_gap,
+            "obj_feasible": obj_feas,
+            "duality_gap": float(carry.last_gap),
+            "totaltime": totaltime,
+            "dual_time": dual_time,
+            # measured passes × modeled unit cost
+            "dual_time_estimated": True,
+            "dual_passes": dual_passes,
+            "dual_lanczos_time": dual_time,
+            "primaltime": totaltime - dual_time,
+            "DIMACS_time": dimacs_time,
+            "iter": total_steps,
+            "majoriter": base_major + carry.majoriters,
+            "dual_bounds_computed": feas,
+            "DIMACS_errs": np.asarray(DIMACS_errs),
+            "ptol": config.ptol,
+            "objtol": config.objtol,
+            "fprec": config.fprec,
+            "rankupd_tol": config.rankupd_tol,
+            "r": r,
+            "timed_out": timed_out,
+            "inner_engine": _engine_name(dp, bool(mega_kwargs(r))) + (
+                "" if mesh is None else engine_suffix(dp)),
+            "dtype": str(dtype).replace("torch.", ""),
+        }
 
 
 def _mega_setup(dp, r: int, k: int, use_armijo: bool, dtype,
@@ -1133,8 +1161,6 @@ def _solve_host(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
     starttime = time.time()
     lastprint = starttime
 
-    R, lam = _init_vars(prob, dp, r, config, dtype, rng)
-    R0_np, lam0_np = R[:n].cpu().numpy(), lam.cpu().numpy()
     sigma = float(config.sigma0)
 
     k = int(config.numlbfgsvecs)
@@ -1145,14 +1171,11 @@ def _solve_host(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
     lbfgs_compact = config.lbfgs_impl == "compact"
     stag_tol = _stagnation_tol(config, dtype)
     pscale = dp.normb if ptol_rel else 1.0
-    lbfgs = lbfgs_init(k, dp.n_pad, r, dtype, dev)
     entry_graphs = EntryGraphs()
     inner_graphs = InnerGraphs()
     # minimum block-Krylov depth ~ log2(n), as the JAX package's dual_obj
     # takes it (dualbound.py:247)
     k_min_base = max(4, int(np.ceil(np.log2(max(n, 2)))))
-
-    mega_meta, mega_data = _mega_setup(dp, r, k, use_armijo, dtype, config)
     mega_specs = {}
 
     def mega_run_for(r_now: int):
@@ -1173,7 +1196,13 @@ def _solve_host(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
 
     cur_gtol = max(1.0 / sigma, _gtol_floor(config, dtype))
     cur_ptol = max(1.0 / sigma ** 0.1, config.ptol)
-    L_val, vio_raw, G, y_full, grad_norm, vio_norm = fg()
+    with span("sdplr.setup"):
+        R, lam = _init_vars(prob, dp, r, config, dtype, rng)
+        R0_np, lam0_np = R[:n].cpu().numpy(), lam.cpu().numpy()
+        lbfgs = lbfgs_init(k, dp.n_pad, r, dtype, dev)
+        mega_meta, mega_data = _mega_setup(dp, r, k, use_armijo, dtype,
+                                           config)
+        L_val, vio_raw, G, y_full, grad_norm, vio_norm = fg()
 
     total_iter = 0
     majoriter = 0
@@ -1208,33 +1237,35 @@ def _solve_host(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
             steps = min(config.inner_chunk, config.maxiter - total_iter + 1)
             if steps <= 0:
                 break
-            spec = mega_run_for(r)
-            if spec is not None:
-                c, pnorm = mega_chunk(spec, r, m, pscale, mega_data, R, lbfgs,
-                                      lam, t(sigma), t(cur_gtol),
-                                      t(stag_tol), steps)
-            elif entry_enabled(dp):
-                c, pnorm = entry_chunk(
-                    dp, R, G, vio_raw, L_val, t(grad_norm), lbfgs, lam,
-                    t(sigma), t(cur_gtol), t(stag_tol), steps, k=k,
-                    gtol_relative=gtol_rel, ptol_relative=ptol_rel,
-                    lbfgs_compact=lbfgs_compact, graphs=entry_graphs)
-            else:
-                c, pnorm = inner_chunk(
-                    dp, R, G, y_full, vio_raw, L_val, t(grad_norm), lbfgs,
-                    lam, t(sigma), t(cur_gtol), t(stag_tol), steps, k=k,
-                    use_armijo=use_armijo, gtol_relative=gtol_rel,
-                    ptol_relative=ptol_rel, lbfgs_compact=lbfgs_compact,
-                    graphs=inner_graphs)
-            R, G, y_full, vio_raw, L_val = c.R, c.G, c.y_full, c.vio_raw, \
-                c.L_val
-            lbfgs = c.lbfgs
-            localiter += int(c.steps)
-            total_iter += int(c.steps)
-            grad_norm = float(c.grad_norm)
-            vio_norm = float(pnorm)
+            with span("sdplr.inner"):
+                spec = mega_run_for(r)
+                if spec is not None:
+                    c, pnorm = mega_chunk(spec, r, m, pscale, mega_data, R,
+                                          lbfgs, lam, t(sigma), t(cur_gtol),
+                                          t(stag_tol), steps)
+                elif entry_enabled(dp):
+                    c, pnorm = entry_chunk(
+                        dp, R, G, vio_raw, L_val, t(grad_norm), lbfgs, lam,
+                        t(sigma), t(cur_gtol), t(stag_tol), steps, k=k,
+                        gtol_relative=gtol_rel, ptol_relative=ptol_rel,
+                        lbfgs_compact=lbfgs_compact, graphs=entry_graphs)
+                else:
+                    c, pnorm = inner_chunk(
+                        dp, R, G, y_full, vio_raw, L_val, t(grad_norm), lbfgs,
+                        lam, t(sigma), t(cur_gtol), t(stag_tol), steps, k=k,
+                        use_armijo=use_armijo, gtol_relative=gtol_rel,
+                        ptol_relative=ptol_rel, lbfgs_compact=lbfgs_compact,
+                        graphs=inner_graphs)
+                R, G, y_full, vio_raw, L_val = (c.R, c.G, c.y_full,
+                                                c.vio_raw, c.L_val)
+                lbfgs = c.lbfgs
+                localiter += int(c.steps)
+                total_iter += int(c.steps)
+                grad_norm = float(c.grad_norm)
+                vio_norm = float(pnorm)
+                stagnated = bool(c.stagnated)
             maybe_print(localiter)
-            if bool(c.stagnated):
+            if stagnated:
                 break
             if (time.time() - starttime > config.maxtime
                     or total_iter > config.maxiter):
@@ -1250,178 +1281,185 @@ def _solve_host(prob, dp, r: int, config: SolverConfig, dtype) -> dict:
             print("Warning: iteration limit exceeded. Stop optimizing.")
             break
 
-        rank_double = False
-        converged = False
+        with span("sdplr.boundary"):
+            rank_double = False
+            converged = False
 
-        if vio_norm <= cur_ptol:
-            # the dual bound at strict boundaries only (src/sdplr.jl:310-
-            # 357), the multiplier alternating between the least-squares
-            # estimate (R passed) and the AL ascent iterate, as in the
-            # fused driver (solver/major.py dual_bound)
-            t_dual = time.time()
-            if vio_norm <= config.ptol:
-                blk = (0, 0)
-                if (config.lanczos_block >= 0
-                        and not config.eigval_highprecision
-                        and (config.lanczos_block > 0 or n > 4096)):
-                    blk = block_sizes(n, r, max(config.lanczos_block, 0))
-                obj_now = abs(float(vio_raw[m]))
-                mt = 0.25 * config.objtol * (
-                    max(obj_now, 1e-8) if objtol_rel else 1.0
-                ) / max(config.prior_trace_bound, 1.0)
-                stats = {}
-                dual_value, _, y_dual = dual_obj(
-                    dp, lam, t(sigma), vio_raw, config.prior_trace_bound,
-                    max(total_iter, 1), gen,
-                    highprecision=config.eigval_highprecision,
-                    safeguard=config.dual_safeguard,
-                    R=R if dual_count % 2 == 0 else None,
-                    block=blk if blk[0] else None, margin_target=mt,
-                    R_seed=R, k_min=min(k_min_base, blk[1]) if blk[0] else 4,
-                    stats=stats)
-                dual_count += 1
-                dual_passes += stats["passes"]
-            else:
-                dual_value = -np.inf
-            dual_time += time.time() - t_dual
-
-            if dual_value > max_dual_value:
-                best_lam = -y_dual[:m].cpu().numpy().astype(np.float64)
-                max_dual_value = dual_value
-            # the termination objective is the certificate the result
-            # reports: the feasibility-projected or entry-certified value
-            obj = float(vio_raw[m])
-            if vio_norm <= config.ptol:
-                if dp.entry_trace_cert:
-                    obj = _entry_term_obj(dp, vio_raw.cpu().numpy(),
-                                          config.objtol, objtol_rel)
+            if vio_norm <= cur_ptol:
+                # the dual bound at strict boundaries only (src/sdplr.jl:310-
+                # 357), the multiplier alternating between the least-squares
+                # estimate (R passed) and the AL ascent iterate, as in the
+                # fused driver (solver/major.py dual_bound)
+                if vio_norm <= config.ptol:
+                    with span("sdplr.dual_bound") as bound:
+                        blk = (0, 0)
+                        if (config.lanczos_block >= 0
+                                and not config.eigval_highprecision
+                                and (config.lanczos_block > 0 or n > 4096)):
+                            blk = block_sizes(n, r,
+                                              max(config.lanczos_block, 0))
+                        obj_now = abs(float(vio_raw[m]))
+                        mt = 0.25 * config.objtol * (
+                            max(obj_now, 1e-8) if objtol_rel else 1.0
+                        ) / max(config.prior_trace_bound, 1.0)
+                        stats = {}
+                        dual_value, _, y_dual = dual_obj(
+                            dp, lam, t(sigma), vio_raw,
+                            config.prior_trace_bound, max(total_iter, 1), gen,
+                            highprecision=config.eigval_highprecision,
+                            safeguard=config.dual_safeguard,
+                            R=R if dual_count % 2 == 0 else None,
+                            block=blk if blk[0] else None, margin_target=mt,
+                            R_seed=R,
+                            k_min=min(k_min_base, blk[1]) if blk[0] else 4,
+                            stats=stats)
+                        dual_count += 1
+                        dual_passes += stats["passes"]
+                    dual_time += bound.seconds
                 else:
-                    obj_cert = _feasible_obj(
-                        prob, dp, R[:n].cpu().numpy().astype(np.float64),
-                        vio_raw.cpu().numpy())
-                    if obj_cert is not None and np.isfinite(obj_cert):
-                        obj = float(obj_cert)
-            if objtol_rel:
-                denom = min(abs(obj), abs(max_dual_value))
-                duality_gap = ((obj - max_dual_value) / denom if denom > 0
-                               else np.inf)
-            else:
-                duality_gap = obj - max_dual_value
+                    dual_value = -np.inf
 
-            if vio_norm <= config.ptol:
-                if config.objtol == np.inf:
-                    converged = True
-                elif duality_gap <= config.objtol:
-                    min_duality_gap = min(min_duality_gap, duality_gap)
-                    converged = True
-                else:
-                    if min_duality_gap - duality_gap < config.objtol:
-                        rankupd_cnt -= 1
+                if dual_value > max_dual_value:
+                    best_lam = -y_dual[:m].cpu().numpy().astype(np.float64)
+                    max_dual_value = dual_value
+                # the termination objective is the certificate the result
+                # reports: the feasibility-projected or entry-certified value
+                obj = float(vio_raw[m])
+                if vio_norm <= config.ptol:
+                    if dp.entry_trace_cert:
+                        obj = _entry_term_obj(dp, vio_raw.cpu().numpy(),
+                                              config.objtol, objtol_rel)
                     else:
-                        rankupd_cnt = config.rankupd_tol
-                    min_duality_gap = min(min_duality_gap, duality_gap)
-                    if rankupd_cnt == 0:
-                        rank_double = True
-            if converged:
-                break
+                        obj_cert = _feasible_obj(
+                            prob, dp, R[:n].cpu().numpy().astype(np.float64),
+                            vio_raw.cpu().numpy())
+                        if obj_cert is not None and np.isfinite(obj_cert):
+                            obj = float(obj_cert)
+                if objtol_rel:
+                    denom = min(abs(obj), abs(max_dual_value))
+                    duality_gap = ((obj - max_dual_value) / denom if denom > 0
+                                   else np.inf)
+                else:
+                    duality_gap = obj - max_dual_value
 
-            # dual ascent λ ← min(λ_ub, λ − σv) (src/sdplr.jl:358-364)
-            lam = torch.minimum(dp.lam_ub, lam - t(sigma) * vio_raw[:m])
-            cur_ptol = cur_ptol / sigma ** 0.9
-            cur_gtol = cur_gtol / sigma
-        else:
-            # infeasible: tighten the penalty (src/sdplr.jl:365-370)
-            sigma *= config.sigmafac
-            cur_ptol = 1.0 / sigma ** 0.1
-            cur_gtol = 1.0 / sigma
+                if vio_norm <= config.ptol:
+                    if config.objtol == np.inf:
+                        converged = True
+                    elif duality_gap <= config.objtol:
+                        min_duality_gap = min(min_duality_gap, duality_gap)
+                        converged = True
+                    else:
+                        if min_duality_gap - duality_gap < config.objtol:
+                            rankupd_cnt -= 1
+                        else:
+                            rankupd_cnt = config.rankupd_tol
+                        min_duality_gap = min(min_duality_gap, duality_gap)
+                        if rankupd_cnt == 0:
+                            rank_double = True
+                if converged:
+                    break
 
-        # rank doubling (src/sdplr.jl:372-386)
-        if rank_double:
-            r = next_rank(r, n, m)
-            if config.rank_update_mode == "warm" and config.init_func is None:
-                R = _warm_vars(dp, R, r, rng, dtype)
+                # dual ascent λ ← min(λ_ub, λ − σv)
+                # (src/sdplr.jl:358-364)
+                lam = torch.minimum(dp.lam_ub, lam - t(sigma) * vio_raw[:m])
+                cur_ptol = cur_ptol / sigma ** 0.9
+                cur_gtol = cur_gtol / sigma
             else:
-                R, lam = _init_vars(prob, dp, r, config, dtype, rng)
-                sigma = float(config.sigma0)
+                # infeasible: tighten the penalty (src/sdplr.jl:365-370)
+                sigma *= config.sigmafac
                 cur_ptol = 1.0 / sigma ** 0.1
                 cur_gtol = 1.0 / sigma
-                min_duality_gap = 1e20
-                max_dual_value = -1e20
-            lbfgs = lbfgs_init(k, dp.n_pad, r, dtype, dev)
-            rankupd_cnt = config.rankupd_tol
-            if config.printlevel > 0:
-                print(f"rank doubled, new rank is {r}.")
-        else:
-            lbfgs = lbfgs_clear(lbfgs)
 
-        cur_ptol = max(cur_ptol, config.ptol)
-        cur_gtol = max(cur_gtol, _gtol_floor(config, dtype))
+            # rank doubling (src/sdplr.jl:372-386)
+            if rank_double:
+                r = next_rank(r, n, m)
+                with span("sdplr.rank_double"):
+                    if (config.rank_update_mode == "warm"
+                            and config.init_func is None):
+                        R = _warm_vars(dp, R, r, rng, dtype)
+                    else:
+                        R, lam = _init_vars(prob, dp, r, config, dtype, rng)
+                        sigma = float(config.sigma0)
+                        cur_ptol = 1.0 / sigma ** 0.1
+                        cur_gtol = 1.0 / sigma
+                        min_duality_gap = 1e20
+                        max_dual_value = -1e20
+                    lbfgs = lbfgs_init(k, dp.n_pad, r, dtype, dev)
+                    rankupd_cnt = config.rankupd_tol
+                    if config.printlevel > 0:
+                        print(f"rank doubled, new rank is {r}.")
+            else:
+                lbfgs = lbfgs_clear(lbfgs)
 
-        # checkpoint at the major boundary (outer.py:1377-1390)
-        if (config.checkpoint_path is not None
-                and majoriter % max(config.checkpoint_every, 1) == 0):
-            save_checkpoint(
-                config.checkpoint_path, R=R[:n].cpu().numpy(),
-                lam=lam.cpu().numpy(), sigma=sigma, r=r, majoriter=majoriter,
-                total_iter=total_iter)
+            cur_ptol = max(cur_ptol, config.ptol)
+            cur_gtol = max(cur_gtol, _gtol_floor(config, dtype))
 
-        # re-sync for the next major iteration (src/sdplr.jl:389)
-        L_val, vio_raw, G, y_full, grad_norm, vio_norm = fg()
+            # checkpoint at the major boundary (outer.py:1377-1390)
+            if (config.checkpoint_path is not None
+                    and majoriter % max(config.checkpoint_every, 1) == 0):
+                save_checkpoint(
+                    config.checkpoint_path, R=R[:n].cpu().numpy(),
+                    lam=lam.cpu().numpy(), sigma=sigma, r=r,
+                    majoriter=majoriter, total_iter=total_iter)
+
+            # re-sync for the next major iteration (src/sdplr.jl:389)
+            L_val, vio_raw, G, y_full, grad_norm, vio_norm = fg()
 
         if majoriter == config.maxmajoriter:
             print("Warning: major iteration limit exceeded. Stop optimizing.")
 
-    # final re-sync and report (src/sdplr.jl:396-425)
-    L_val, vio_raw, G, y_full, grad_norm, vio_norm = fg()
-    maybe_print(-1, force=True)
+    with span("sdplr.finish"):
+        # final re-sync and report (src/sdplr.jl:396-425)
+        L_val, vio_raw, G, y_full, grad_norm, vio_norm = fg()
+        maybe_print(-1, force=True)
 
-    totaltime = time.time() - starttime
-    t_dimacs = time.time()
-    if config.eval_DIMACS_errs:
-        DIMACS_errs = dimacs_errors(dp, R, lam, vio_raw, vio_raw[m], gen)
-    else:
-        DIMACS_errs = np.zeros(6)
-    dimacs_time = time.time() - t_dimacs
+        totaltime = time.time() - starttime
+        t_dimacs = time.time()
+        if config.eval_DIMACS_errs:
+            DIMACS_errs = dimacs_errors(dp, R, lam, vio_raw, vio_raw[m], gen)
+        else:
+            DIMACS_errs = np.zeros(6)
+        dimacs_time = time.time() - t_dimacs
 
-    obj = float(vio_raw[m])
-    R_np = R[:n].cpu().numpy().astype(np.float64)
-    obj_feas = _feasible_obj(prob, dp, R_np, vio_raw.cpu().numpy())
-    rel_gap = _final_gap(obj if obj_feas is None else obj_feas,
-                         max_dual_value, max_dual_value > -1e19)
-    return {
-        "R": R_np,
-        "Rt": R_np.T,
-        "lambda": best_lam,
-        "lambda_last": lam.cpu().numpy().astype(np.float64),
-        "R0": R0_np,
-        "Rt0": R0_np.T,
-        "lambda0": lam0_np,
-        "sigma": sigma,
-        "grad_norm": grad_norm,
-        "primal_vio": vio_norm,
-        "obj": obj,
-        "max_dual_value": max_dual_value,
-        "min_duality_gap": min_duality_gap,
-        "rel_duality_gap": rel_gap,
-        "obj_feasible": obj_feas,
-        "duality_gap": duality_gap,
-        "totaltime": totaltime,
-        "dual_time": dual_time,
-        "dual_time_estimated": False,  # measured on the host's clock
-        "dual_passes": dual_passes,
-        "dual_lanczos_time": dual_time,
-        "primaltime": totaltime - dual_time,
-        "DIMACS_time": dimacs_time,
-        "iter": total_iter,
-        "majoriter": majoriter,
-        "dual_bounds_computed": dual_count,
-        "DIMACS_errs": np.asarray(DIMACS_errs),
-        "ptol": config.ptol,
-        "objtol": config.objtol,
-        "fprec": config.fprec,
-        "rankupd_tol": config.rankupd_tol,
-        "r": r,
-        "timed_out": timed_out,
-        "inner_engine": _engine_name(dp, mega_run_for(r) is not None),
-        "dtype": str(dtype).replace("torch.", ""),
-    }
+        obj = float(vio_raw[m])
+        R_np = R[:n].cpu().numpy().astype(np.float64)
+        obj_feas = _feasible_obj(prob, dp, R_np, vio_raw.cpu().numpy())
+        rel_gap = _final_gap(obj if obj_feas is None else obj_feas,
+                             max_dual_value, max_dual_value > -1e19)
+        return {
+            "R": R_np,
+            "Rt": R_np.T,
+            "lambda": best_lam,
+            "lambda_last": lam.cpu().numpy().astype(np.float64),
+            "R0": R0_np,
+            "Rt0": R0_np.T,
+            "lambda0": lam0_np,
+            "sigma": sigma,
+            "grad_norm": grad_norm,
+            "primal_vio": vio_norm,
+            "obj": obj,
+            "max_dual_value": max_dual_value,
+            "min_duality_gap": min_duality_gap,
+            "rel_duality_gap": rel_gap,
+            "obj_feasible": obj_feas,
+            "duality_gap": duality_gap,
+            "totaltime": totaltime,
+            "dual_time": dual_time,
+            "dual_time_estimated": False,  # measured on the host's clock
+            "dual_passes": dual_passes,
+            "dual_lanczos_time": dual_time,
+            "primaltime": totaltime - dual_time,
+            "DIMACS_time": dimacs_time,
+            "iter": total_iter,
+            "majoriter": majoriter,
+            "dual_bounds_computed": dual_count,
+            "DIMACS_errs": np.asarray(DIMACS_errs),
+            "ptol": config.ptol,
+            "objtol": config.objtol,
+            "fprec": config.fprec,
+            "rankupd_tol": config.rankupd_tol,
+            "r": r,
+            "timed_out": timed_out,
+            "inner_engine": _engine_name(dp, mega_run_for(r) is not None),
+            "dtype": str(dtype).replace("torch.", ""),
+        }

@@ -921,3 +921,57 @@ def test_launch_counters_count_every_replay(h100):
         assert st["warmup_steps"] == (inner.WARMUP_STEPS if graph else 0)
         assert ga.ROWS.launches - rows == 1 + run
         assert spmm_mod.CALLS["spmm_ell"] - spmms == 1 + run
+
+
+@pytest.mark.cuda
+def test_spans_of_fast_diagonal_solves_on_the_card(h100, tmp_path):
+    """Two fast-diagonal solves under the profiler: an
+    ``sdplr.inner.capture`` in each solve (each solve captures its own
+    inner chunk, one per rank it runs at), and device kernels whose
+    launching runtime call lies inside an ``sdplr.inner`` span, matched
+    by the trace's correlation ids (a replay's kernels go to its
+    cudaGraphLaunch)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdplrplus_tpu_torch.solver import inner
+
+    A = problems.synthetic_graph(3000, 8)
+    C, As, b = problems.maxcut(A)
+    kw = dict(ptol=1e-2, objtol=1e-2, prior_trace_bound=3000.0,
+              dtype="float32", seed=0, printlevel=0, dense_mode=False)
+    sdplr(C, As, b, 10, **kw)             # builds and loads the kernels
+    inner.STATS.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = [sdplr(C, As, b, 10, **dict(kw, seed=s)) for s in (1, 2)]
+        torch.cuda.synchronize()
+    assert all(r["inner_engine"] == ENGINE_FAST for r in res)
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    ann = [e for e in events if e.get("cat") == "user_annotation"
+           and str(e["name"]).startswith("sdplr.")]
+    count = collections.Counter(e["name"] for e in ann)
+    assert count["sdplr.solve"] == 2
+    assert count["sdplr.inner.capture"] == inner.STATS["captures"]
+    solves = [(e["ts"], e["ts"] + e["dur"]) for e in ann
+              if e["name"] == "sdplr.solve"]
+    for s, t in solves:
+        assert any(s <= e["ts"] <= t for e in ann
+                   if e["name"] == "sdplr.inner.capture")
+    tid = next(e["tid"] for e in ann if e["name"] == "sdplr.solve")
+    inner_spans = [(e["ts"], e["ts"] + e["dur"]) for e in ann
+                   if e["name"] == "sdplr.inner" and e["tid"] == tid]
+    assert inner_spans
+    corr = {e["args"]["correlation"] for e in events
+            if e.get("cat") == "cuda_runtime" and e["tid"] == tid
+            and "correlation" in e.get("args", {})
+            and any(s <= e["ts"] <= t for s, t in inner_spans)}
+    under = [e for e in events if e.get("cat") == "kernel"
+             and e.get("args", {}).get("correlation") in corr]
+    assert under
+    assert any("gather_rows" in e["name"] for e in under)
