@@ -218,9 +218,22 @@ class CompiledProblem:
     ls_v_neg: np.ndarray | None = None      # (n_pad,)
 
 
-def _triu_of(A: SparseSym) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    keep = A.rows <= A.cols
-    return A.rows[keep], A.cols[keep], A.vals[keep]
+def _triu_entries(sparse_ops: List[Tuple[int, SparseSym]]):
+    """Every sparse operand's upper-triangle entries as flat arrays (row,
+    col, value, operand gid): by operand, then in each operand's own
+    coalesced order. One concatenation, so that the rest of the compile
+    runs as whole-array passes rather than a Python loop per operand."""
+    if not sparse_ops:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z, np.zeros(0), z
+    k = len(sparse_ops)
+    lens = np.fromiter((A.vals.shape[0] for _, A in sparse_ops), np.int64, k)
+    gid = np.repeat(np.fromiter((g for g, _ in sparse_ops), np.int64, k), lens)
+    rows = np.concatenate([A.rows for _, A in sparse_ops])
+    cols = np.concatenate([A.cols for _, A in sparse_ops])
+    vals = np.concatenate([A.vals for _, A in sparse_ops])
+    keep = rows <= cols
+    return rows[keep], cols[keep], vals[keep], gid[keep]
 
 
 # one tier-2 scatter-added row costs about this many tier-1 gather slots
@@ -311,6 +324,22 @@ def _build_tier2(t_rows, t_cols, t_tri, t_rank, W2: int, P_pad: int,
             ell2_tri, R2_shard)
 
 
+def _first_of_least(rows: np.ndarray, key: np.ndarray):
+    """The rows that hold an entry, ascending, and for each the entry that
+    a scan in entry order keeps when it replaces its pick only on a
+    strictly smaller key: the first of the row's least keys, or the row's
+    first entry where that key is NaN (a NaN compares false both ways)."""
+    order = np.lexsort((key, rows))  # stable; NaN keys sort last
+    r = rows[order]
+    head = np.ones(r.shape[0], dtype=bool)
+    head[1:] = r[1:] != r[:-1]
+    pick = order[head]
+    _, first = np.unique(rows, return_index=True)
+    nan_first = np.isnan(key[first])
+    pick[nan_first] = first[nan_first]
+    return r[head], pick
+
+
 def _compile_ls_structure(n, m, n_pad, b, ct, all_cons_diagonal, wide_gids,
                           wide_mask_ent, ent_gid, ent_ti, ent_v1, gid_counts,
                           lowrank_con_gids):
@@ -345,23 +374,22 @@ def _compile_ls_structure(n, m, n_pad, b, ct, all_cons_diagonal, wide_gids,
     have_neg = np.zeros(n_pad, dtype=bool)
 
     sel = ~wide_mask_ent
-    for g, t, v in zip(ent_gid[sel], ent_ti[sel], ent_v1[sel]):
-        g, t = int(g), int(t)
-        if not narrow_gid_mask[g] or v == 0.0:
-            continue
-        slope = -float(b[g]) / float(v)
-        # equality: y free -> both sides; inequality (<=): y >= 0 -> only
-        # the side with sign(v)
-        sides = ("+", "-") if not ct[g] else (("+",) if v > 0 else ("-",))
-        for s in sides:
-            if s == "+":
-                if not have_pos[t] or slope > slope_pos[t]:
-                    slope_pos[t], gid_pos[t], v_pos[t] = slope, g, v
-                    have_pos[t] = True
-            else:
-                if not have_neg[t] or slope < slope_neg[t]:
-                    slope_neg[t], gid_neg[t], v_neg[t] = slope, g, v
-                    have_neg[t] = True
+    g, t, v = ent_gid[sel], ent_ti[sel], ent_v1[sel]
+    use = narrow_gid_mask[g] & (v != 0.0)
+    g, t, v = g[use], t[use], v[use]
+    slope = -b[g] / v
+    # equality: y free -> both sides; inequality (<=): y >= 0 -> only the
+    # side with sign(v). Each row keeps the largest slope on "+" and the
+    # smallest on "-", the first in entry order among equals.
+    eq = ~ct[g]
+    for side, key, slope_s, gid_s, v_s, have_s in (
+            (eq | (v > 0), -slope, slope_pos, gid_pos, v_pos, have_pos),
+            (eq | ~(v > 0), slope, slope_neg, gid_neg, v_neg, have_neg)):
+        on = np.flatnonzero(side)
+        rows, k = _first_of_least(t[on], key[on])
+        w = on[k]
+        slope_s[rows], gid_s[rows], v_s[rows] = slope[w], g[w], v[w]
+        have_s[rows] = True
 
     # concavity of the per-row cost (needed by the wide-split PWL max):
     # left slope >= right slope wherever both sides exist
@@ -424,14 +452,9 @@ def compile_problem(
             lowrank_ops.append((gid, A))
 
     # ---- aggregate triu pattern (src/preprocess.jl:42-93) ------------------
-    if sparse_ops:
-        tri_keys = []
-        for _, A in sparse_ops:
-            ti, tj, _ = _triu_of(A)
-            tri_keys.append(ti.astype(np.int64) * n + tj.astype(np.int64))
-        agg_keys = np.unique(np.concatenate(tri_keys))
-    else:
-        agg_keys = np.zeros(0, dtype=np.int64)
+    ti, tj, tv, tg = _triu_entries(sparse_ops)
+    keys = ti * n + tj
+    agg_keys = np.unique(keys)
     P = agg_keys.shape[0]
     P_pad = _round_up(P + 1, nnz_pad)  # +1 keeps one guaranteed-zero slot
     agg_rows = np.zeros(P_pad, dtype=INDEX_DTYPE)
@@ -448,36 +471,17 @@ def compile_problem(
     # fallback) instead of per-entry Python loops.
     from .utils.native import group_ell_pack
 
+    pos = np.searchsorted(agg_keys, keys)
+    tri_diag = ti == tj
+    v2 = np.where(tri_diag, tv, 2.0 * tv)
+    is_c = tg == m  # the objective C
     c_val_one = np.zeros(P_pad)
     c_val_two = np.zeros(P_pad)
-    ent_gid_l, ent_pos_l, ent_v1_l, ent_v2_l = [], [], [], []
-    ent_ti_l, ent_tj_l = [], []
-    for gid, A in sparse_ops:
-        ti, tj, tv = _triu_of(A)
-        keys = ti.astype(np.int64) * n + tj.astype(np.int64)
-        pos = np.searchsorted(agg_keys, keys)
-        v2 = np.where(ti == tj, tv, 2.0 * tv)
-        if gid == m:  # the objective C
-            c_val_one[pos] = tv
-            c_val_two[pos] = v2
-        else:
-            ent_gid_l.append(np.full(len(pos), gid, dtype=np.int64))
-            ent_pos_l.append(pos.astype(np.int64))
-            ent_v1_l.append(np.asarray(tv, dtype=np.float64))
-            ent_v2_l.append(np.asarray(v2, dtype=np.float64))
-            ent_ti_l.append(ti.astype(np.int64))
-            ent_tj_l.append(tj.astype(np.int64))
-
-    def _cat(lst, dtype):
-        return (np.concatenate(lst) if lst
-                else np.zeros(0, dtype=dtype))
-
-    ent_gid = _cat(ent_gid_l, np.int64)
-    ent_pos = _cat(ent_pos_l, np.int64)
-    ent_v1 = _cat(ent_v1_l, np.float64)
-    ent_v2 = _cat(ent_v2_l, np.float64)
-    ent_ti = _cat(ent_ti_l, np.int64)
-    ent_tj = _cat(ent_tj_l, np.int64)
+    c_val_one[pos[is_c]] = tv[is_c]
+    c_val_two[pos[is_c]] = v2[is_c]
+    con = ~is_c
+    ent_gid, ent_pos, ent_v1, ent_v2 = tg[con], pos[con], tv[con], v2[con]
+    ent_ti, ent_tj = ti[con], tj[con]
 
     WIDE_THRESHOLD = 8
     gid_counts = np.bincount(ent_gid, minlength=m) if m else np.zeros(0, int)
@@ -487,16 +491,9 @@ def compile_problem(
         else np.zeros(len(ent_gid), dtype=bool)
     )
     wide_val_two = np.zeros((len(wide_gids), P_pad))
-    if wide_gids:
-        widx = {g: i for i, g in enumerate(wide_gids)}
-        wg = ent_gid[wide_mask_ent]
-        wp = ent_pos[wide_mask_ent]
-        wv = ent_v2[wide_mask_ent]
-        wide_val_two[
-            np.fromiter((widx[int(g)] for g in wg), dtype=np.int64,
-                        count=len(wg)),
-            wp,
-        ] = wv
+    # row of each wide entry's constraint (wide_gids ascend)
+    wide_row = np.searchsorted(wide_gids, ent_gid[wide_mask_ent])
+    wide_val_two[wide_row, ent_pos[wide_mask_ent]] = ent_v2[wide_mask_ent]
 
     narrow = ~wide_mask_ent
     K = int(gid_counts[gid_counts <= WIDE_THRESHOLD].max()) if (
@@ -638,16 +635,8 @@ def compile_problem(
     # fast-diagonal SpMM path computes their forward values as
     # wide_diag_w @ rowvals; only meaningful when all_cons_diagonal)
     wide_diag_w = np.zeros((len(wide_gids), n_pad))
-    if wide_gids and all_cons_diagonal:
-        widx_d = {g: i for i, g in enumerate(wide_gids)}
-        wsel = wide_mask_ent
-        wide_diag_w[
-            np.fromiter(
-                (widx_d[int(g)] for g in ent_gid[wsel]), dtype=np.int64,
-                count=int(wsel.sum()),
-            ),
-            ent_ti[wsel],
-        ] = ent_v1[wsel]
+    if all_cons_diagonal:
+        wide_diag_w[wide_row, ent_ti[wide_mask_ent]] = ent_v1[wide_mask_ent]
 
     # ---- low-rank terms ------------------------------------------------------
     lr_terms = []
@@ -753,10 +742,9 @@ def compile_problem(
     # trace(C)/n: the objective of the canonical feasible point I/n used
     # by the rigorous entry-mode certificate
     trC = 0.0
-    for gid_c, A_c in sparse_ops:
-        if gid_c == m:
-            diag_sel = A_c.rows == A_c.cols
-            trC += float(np.sum(A_c.vals[diag_sel]))
+    c_sparse = isinstance(prob.C, SparseSym)
+    if c_sparse:
+        trC += float(np.sum(tv[is_c & tri_diag]))
     for gid_c, A_c in lowrank_ops:
         if gid_c == m:
             trC += float(np.sum(A_c.d * np.sum(A_c.B * A_c.B, axis=0)))
@@ -784,10 +772,8 @@ def compile_problem(
             int(g) for g in sorted(lowrank_con_gids)
         )
         extra_wide_w = np.zeros((len(wide_gids), n_pad))
-        for i, g in enumerate(wide_gids):
-            selw = ent_gid == g
-            extra_wide_w[i, ent_ti[selw]] = ent_v1[selw]
-        if any(gid == m for gid, _ in sparse_ops):  # C sparse -> densify
+        extra_wide_w[wide_row, ent_ti[wide_mask_ent]] = ent_v1[wide_mask_ent]
+        if c_sparse:  # densify
             ew_C = np.zeros((n_pad, n_pad))
             ti = agg_rows[:P]
             tj = agg_cols[:P]

@@ -12,14 +12,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
+from sdplrplus_tpu import compile as j_compile_mod
 from sdplrplus_tpu.compile import compile_problem as j_compile
 from sdplrplus_tpu.models import problems as j_models
 from sdplrplus_tpu.ops import cubic as j_cubic
 from sdplrplus_tpu.ops import lanczos as j_lanczos
 from sdplrplus_tpu.ops.device import to_device as j_to_device
 from sdplrplus_tpu.problem import SDPProblem as JProblem
+from sdplrplus_tpu.problem import sparse_coo as j_sparse_coo
 from sdplrplus_tpu.solver import dualbound as j_dualbound
 from sdplrplus_tpu.solver import lbfgs as j_lbfgs
 from sdplrplus_tpu.solver import major as j_major
@@ -29,6 +32,7 @@ from sdplrplus_tpu.solver.linesearch import (
     exact_linesearch as j_exact_linesearch,
 )
 
+from sdplrplus_tpu_torch import compile as t_compile_mod
 from sdplrplus_tpu_torch import convert
 from sdplrplus_tpu_torch.compile import compile_problem as t_compile
 from sdplrplus_tpu_torch.models import problems as t_models
@@ -38,6 +42,7 @@ from sdplrplus_tpu_torch.ops.device import (
     FLOAT_FIELDS, INT_FIELDS, STATIC_FIELDS, to_device as t_to_device,
 )
 from sdplrplus_tpu_torch.problem import SDPProblem as TProblem
+from sdplrplus_tpu_torch.problem import sparse_coo as t_sparse_coo
 from sdplrplus_tpu_torch.solver import dualbound as t_dualbound
 from sdplrplus_tpu_torch.solver import lbfgs as t_lbfgs
 from sdplrplus_tpu_torch.solver import major as t_major
@@ -109,10 +114,100 @@ def _fields(obj):
 
 # ---------------------------------------------------------------- compile
 
-@pytest.mark.parametrize("problem", sorted(FAMILIES))
-@pytest.mark.parametrize("dense", [True, False])
+PACKAGES = ((j_models, JProblem, j_sparse_coo, j_compile),
+            (t_models, TProblem, t_sparse_coo, t_compile))
+
+
+def _graph_case(gen, A, *args, **compile_kw):
+    """Both packages' compiles of the ``gen`` family on one scipy graph."""
+    out = []
+    for models, problem, _, compile_ in PACKAGES:
+        C, As, b, *ct = getattr(models, gen)(A, *args)
+        out.append(compile_(problem(C, As, np.asarray(b, np.float64),
+                                    ct[0] if ct else None), **compile_kw))
+    return out
+
+
+def _star_plus_sparse(n=300, seed=3):
+    """A star on vertex 0 joined to a sparse random graph: one row of
+    degree n − 1 among rows of degree about 4."""
+    A = j_models.make_random_graph(n, 1.0 - 4.0 / n, seed=seed).tolil()
+    A[0, 1:] = 1.0
+    A[1:, 0] = 1.0
+    return A.tocsr()
+
+
+def _torus(h, w, seed):
+    """Gset G81's shape at h = 100, w = 200: an h × w toroidal grid,
+    ±1 weights."""
+    v = np.arange(h * w).reshape(h, w)
+    i = np.concatenate([v.ravel(), v.ravel()])
+    j = np.concatenate([np.roll(v, -1, axis=1).ravel(),
+                        np.roll(v, -1, axis=0).ravel()])
+    wt = 2.0 * np.random.default_rng(seed).integers(0, 2, i.shape[0]) - 1.0
+    return sp.coo_matrix((np.concatenate([wt, wt]),
+                          (np.concatenate([i, j]), np.concatenate([j, i]))),
+                         shape=(h * w, h * w)).tocsr()
+
+
+def _skewed(n_shards):
+    cps = _graph_case("maxcut", _star_plus_sparse(), n_shards=n_shards)
+    assert cps[1].ell2_rows.shape[0] > 0  # the star's row spills to tier 2
+    assert (cps[1].halo_H > 0) == (n_shards > 1)
+    return cps
+
+
+def _ls_channels():
+    """Narrow diagonal constraints sharing rows, a wide trace equality:
+    the least-squares dual's per-row channel choice with ties (row 0),
+    unequal slopes (row 2) and inequalities of negative weight (1, 3)."""
+    n = 12
+    # (row, weight, b, inequality)
+    narrow = [(0, 1.0, 1.0, False), (0, 2.0, 2.0, False),
+              (0, 1.0, 3.0, True), (1, -1.0, -0.5, True),
+              (1, 1.0, 1.0, False), (2, 1.0, 1.0, True),
+              (2, 2.0, 1.0, True), (3, -2.0, 1.0, True),
+              (3, -1.0, 1.0, True), (5, 1.0, 1.0, False)]
+    A = j_models.make_random_graph(n, 0.6, seed=4)
+    out = []
+    for models, problem, coo, compile_ in PACKAGES:
+        C = models.maxcut(A)[0]
+        As = [coo([t], [t], [v], n) for t, v, _, _ in narrow]
+        As.append(coo(np.arange(n), np.arange(n), np.ones(n), n))
+        b = [bb for _, _, bb, _ in narrow] + [float(n)]
+        ct = [c for _, _, _, c in narrow] + [False]
+        out.append(compile_(problem(C, As, np.asarray(b), np.asarray(ct))))
+    assert out[1].ls_eligible
+    return out
+
+
+COMPILE_CASES = {
+    "theta": lambda: _graph_case(
+        "lovasz_theta", j_models.make_random_graph(24, 0.7, seed=1)),
+    "mucond": lambda: _graph_case(
+        "mu_conductance", j_models.make_random_graph(24, 0.6, seed=2), 0.1),
+    "mucond_ineq": lambda: _graph_case(
+        "mu_conductance_ineq", j_models.make_random_graph(24, 0.6, seed=2),
+        0.1),
+    "relaxed_maxcut_ineq": lambda: _graph_case(
+        "relaxed_maxcut_ineq", j_models.make_random_graph(24, 0.6, seed=2)),
+    "skewed": lambda: _skewed(1),
+    "skewed_shards2": lambda: _skewed(2),
+    "torus_g81": lambda: _graph_case("maxcut", _torus(100, 200, seed=5)),
+    "ls_channels": _ls_channels,
+}
+
+
+@pytest.mark.parametrize("problem,dense", [
+    *(pytest.param(p, d, id=f"{d}-{p}")
+      for d in (True, False) for p in sorted(FAMILIES)),
+    *(pytest.param(c, None, id=c) for c in COMPILE_CASES),
+])
 def test_compile_problem_fields_equal(problem, dense):
-    cp_j, cp_t = _problems(problem, dense=dense)
+    if problem in FAMILIES:
+        cp_j, cp_t = _problems(problem, dense=dense)
+    else:
+        cp_j, cp_t = COMPILE_CASES[problem]()
     for f in dataclasses.fields(cp_j):
         a, b = getattr(cp_j, f.name), getattr(cp_t, f.name)
         if f.name == "lowrank":
@@ -123,8 +218,45 @@ def test_compile_problem_fields_equal(problem, dense):
                 np.testing.assert_array_equal(ta.d, tb.d)
         elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
             np.testing.assert_array_equal(a, b, err_msg=f.name)
+            assert a.dtype == b.dtype, f.name
         else:
             assert a == b, f.name
+
+
+def _ls_inputs(nan_b):
+    """The least-squares channel choice's inputs, by hand: narrow
+    one-entry constraints (gid, row, weight, b, inequality), among them
+    one of weight 0, beside a wide equality (gid 10) and a low-rank one
+    (gid 11). With ``nan_b`` a row's first slope and another's second
+    are NaN."""
+    narrow = [(0, 0, 1.0, 1.0, False), (1, 0, 2.0, 2.0, False),
+              (2, 0, 1.0, 3.0, True), (3, 1, -1.0, -0.5, True),
+              (4, 1, 1.0, 1.0, False), (5, 1, 0.0, 7.0, False),
+              (6, 2, 1.0, 1.0, True), (7, 2, 2.0, 1.0, True),
+              (8, 3, -2.0, 1.0, True), (9, 3, -1.0, 1.0, True)]
+    n, n_pad, m = 6, 8, 12
+    b = np.zeros(m)
+    ct = np.zeros(m, dtype=bool)
+    for g, _, _, bb, c in narrow:
+        b[g], ct[g] = bb, c
+    b[10] = 6.0
+    if nan_b:
+        b[0] = b[9] = np.nan
+    ent_gid = np.array([g for g, *_ in narrow] + [10] * n)
+    ent_ti = np.array([t for _, t, *_ in narrow] + list(range(n)))
+    ent_v1 = np.array([v for _, _, v, _, _ in narrow] + [1.0] * n)
+    return (n, m, n_pad, b, ct, True, (10,), ent_gid == 10, ent_gid,
+            ent_ti, ent_v1, np.bincount(ent_gid, minlength=m), [11])
+
+
+@pytest.mark.parametrize("nan_b", [False, True])
+def test_ls_channel_rule_equal(nan_b):
+    want = j_compile_mod._compile_ls_structure(*_ls_inputs(nan_b))
+    got = t_compile_mod._compile_ls_structure(*_ls_inputs(nan_b))
+    assert want["ls_eligible"] and got.keys() == want.keys()
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+        assert np.asarray(got[k]).dtype == np.asarray(w).dtype, k
 
 
 # ----------------------------------------------------------------- device
