@@ -75,7 +75,7 @@ def worst(rows: list) -> dict:
     return out
 
 
-def claimed(C, b, trace_bound: float, solve: dict) -> dict:
+def claimed(inst, solve: dict) -> dict:
     """What the solve itself claimed."""
     return solve["claims"]
 
@@ -83,8 +83,9 @@ def claimed(C, b, trace_bound: float, solve: dict) -> dict:
 def judge(records: list, instances: list, config: dict, seed: int,
           claims_of=claimed) -> tuple:
     """(correct, {name: (worst reading, limit)}, solves checked).
-    ``claims_of(C, b, trace_bound, solve)`` gives the claims judged: the
-    solve's own, or the control's (control.py)."""
+    ``claims_of(instance, solve)`` gives the claims judged: the solve's
+    own, or the control's (control.py). The reference gets the whole
+    instance: ``certify(instance, R, λ)``."""
     ref = reference(config["problem"])
     solver = config["solver"]
     rows = []
@@ -94,11 +95,9 @@ def judge(records: list, instances: list, config: dict, seed: int,
         if s.get("R") is None:
             rows.append({k: None for k in limits(config)})
             continue
-        C, b = instances[s["instance"]]
-        tb = float(C.shape[0]) if solver["trace_bound"] == "n" \
-            else float(solver["trace_bound"])
-        r = ref.certify(C, b, tb, s["R"], s["lam"])
-        rows.append(numbers(r, claims_of(C, b, tb, s), solver))
+        inst = instances[s["instance"]]
+        r = ref.certify(inst, s["R"], s["lam"])
+        rows.append(numbers(r, claims_of(inst, s), solver))
     got = worst(rows)
     lim = limits(config)
     table = {k: (got.get(k, float("inf")), lim[k]) for k in lim}

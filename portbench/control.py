@@ -32,8 +32,8 @@ def readings(root: str, workload: str, seeds: list, seconds: float, *,
     from . import check, harness
     from .reference import tf32
 
-    def tf32_claims(C, b, tb, s):
-        return tf32.certify(C, b, tb, s["R"], s["lam"])
+    def tf32_claims(inst, s):
+        return tf32.certify(inst, s["R"], s["lam"])
 
     for n, seed in enumerate(seeds):
         with faults.planted(fault) if fault else contextlib.nullcontext():

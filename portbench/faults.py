@@ -68,14 +68,15 @@ def _state_unchanged():
 def _half_batch():
     real = port.solve
 
-    def solve(C, As, b, solver, **kwargs):
-        U = sp.triu(C, 1).tocoo()
+    def solve(inst, As, solver, **kwargs):
+        U = sp.triu(inst.C, 1).tocoo()
         keep = np.random.default_rng(U.nnz).random(U.nnz) < 0.5
         W = sp.coo_matrix((2.0 * U.data[keep], (U.row[keep], U.col[keep])),
-                          shape=C.shape)
+                          shape=inst.C.shape)
         W = W + W.T
         deg = np.asarray(W.sum(axis=1)).ravel()
-        return real((W - sp.diags(deg)).tocsr(), As, b, solver, **kwargs)
+        return real(dataclasses.replace(inst, C=(W - sp.diags(deg)).tocsr()),
+                    As, solver, **kwargs)
 
     return _patched(port, "solve", solve)
 

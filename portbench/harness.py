@@ -6,9 +6,12 @@ metric is a file of its own, found by the name that ``BENCHMARK.json``
 gives it:
 
 * configuration ``<c>``: the ``file`` of its entry (``configs/<c>.json``):
-  problem, graph family and parameters, solver settings, check limits;
+  problem and, optionally, its ``"params"``, graph family and parameters,
+  solver settings, check limits;
 * graph family ``<f>`` named by a configuration: ``families/<f>.py``;
-* problem ``<p>``: its plain reference, ``reference/<p>.py``;
+* problem ``<p>``: its plain reference, ``reference/<p>.py``, whose
+  ``formulation(graph, **params)`` returns an ``instance.Instance`` and
+  whose ``certify(instance, R, λ)`` returns the check's readings;
 * traffic mix ``<t>``: ``mixes/<t>.json`` (pool size, per-solve maxtime,
   traced solves);
 * per-layer metric ``<m>``: ``metrics/<m>.py``, whose ``read(ctx)``
@@ -17,6 +20,7 @@ gives it:
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -26,6 +30,7 @@ import types
 import numpy as np
 
 from . import check, endtoend, port, trace
+from .instance import resolve_trace_bound
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -80,15 +85,23 @@ def metrics_of(entries: list, workload: str) -> list:
 
 
 def make_pool(config: dict, mix: dict, rng: np.random.Generator) -> list:
-    """The instance pool: [(C, b)]. The pool is fixed, as Gset's files
-    are: instance j is the family's draw with seed j. The run's seed only
-    chooses the order in which the loop visits it (and, in ``Loop``, each
-    solve's solver seed), so every run does the same work."""
+    """The instance pool: [Instance], each with the trace bound that the
+    configuration's ``solver.trace_bound`` states for it. The pool is
+    fixed, as Gset's files are: instance j is the family's draw with seed
+    j. The run's seed only chooses the order in which the loop visits it
+    (and, in ``Loop``, each solve's solver seed), so every run does the
+    same work."""
     family = load_module("families", config["family"])
     ref = check.reference(config["problem"])
+    params = config.get("params", {})
     order = rng.permutation(int(mix["pool"]))
-    return [ref.formulation(family.graph(config["graph"], int(j)))
-            for j in order]
+    pool = []
+    for j in order:
+        inst = ref.formulation(family.graph(config["graph"], int(j)),
+                               **params)
+        tb = resolve_trace_bound(config["solver"]["trace_bound"], inst)
+        pool.append(dataclasses.replace(inst, trace_bound=tb))
+    return pool
 
 
 def record(i: int, j: int, seed: int, wall: float, res: dict | None,
@@ -118,11 +131,12 @@ def record(i: int, j: int, seed: int, wall: float, res: dict | None,
 
 
 class Loop:
-    """The closed loop over the pool: solve i takes instance i mod pool
-    and the i-th solver seed."""
+    """The closed loop over the pool: solve i takes instance i mod pool,
+    with its constraints as the port's operands (``operands[j]``, made in
+    set-up), and the i-th solver seed."""
 
-    def __init__(self, pool, As_of, config, mix, rng, device):
-        self.pool, self.As_of, self.device = pool, As_of, device
+    def __init__(self, pool, operands, config, mix, rng, device):
+        self.pool, self.operands, self.device = pool, operands, device
         self.solver, self.mix = config["solver"], mix
         self.seeds = iter(rng.integers(0, 2**31 - 1, size=1 << 20))
         self.next = 0
@@ -132,13 +146,12 @@ class Loop:
         (the warm-up's)."""
         i, self.next = self.next, self.next + 1
         j = i % len(self.pool)
-        C, b = self.pool[j]
         seed = int(next(self.seeds))
         solver = self.solver if tol is None else dict(
             self.solver, ptol=tol, objtol=tol)
         t0 = time.perf_counter()
         try:
-            res = port.solve(C, self.As_of(C.shape[0]), b, solver,
+            res = port.solve(self.pool[j], self.operands[j], solver,
                              seed=seed, maxtime=float(self.mix["maxtime_s"]),
                              device=self.device)
             error = None
@@ -149,11 +162,11 @@ class Loop:
 
 
 class Run:
-    """A cell's set-up (the pool from the seed, the shared constraints, the
-    warm-up solve) and its measured window. As the upstream protocol
-    does, the warm-up solves the pool's first instance at ptol = objtol =
-    WARMUP_TOL: it loads every library and kernel the solves use at a
-    fraction of a solve's time."""
+    """A cell's set-up (the pool from the seed, its constraints as the
+    port's operands, the warm-up solve) and its measured window. As the
+    upstream protocol does, the warm-up solves the pool's first instance
+    at ptol = objtol = WARMUP_TOL: it loads every library and kernel the
+    solves use at a fraction of a solve's time."""
 
     def __init__(self, root: str, workload: str, seed: int, *,
                  device: str = "cuda", warm: bool = True):
@@ -163,21 +176,16 @@ class Run:
                                                               workload)
         rng = np.random.default_rng(int(seed))
         self.pool = make_pool(self.config, self.mix, rng)
-        self._shared = {}
+        self.operands = port.operands(self.pool)
         self.on_card = torch.device(device).type == "cuda"
-        self.loop = Loop(self.pool, self.As_of, self.config, self.mix, rng,
-                         device)
+        self.loop = Loop(self.pool, self.operands, self.config, self.mix,
+                         rng, device)
         if warm:
             self.loop.solve(tol=WARMUP_TOL)
         self.loop.next = 0     # the window starts again at the pool's head
         if self.on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-
-    def As_of(self, n: int) -> list:
-        if n not in self._shared:
-            self._shared[n] = port.constraints(n)
-        return self._shared[n]
 
     def window(self, seconds: float, traced: bool = False):
         """(records, window seconds, reduced trace, counter deltas). A
@@ -217,8 +225,8 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     ctx = types.SimpleNamespace(
         config=config, mix=mix, pool=pool, records=records,
         traced=records[:n_traced], counts=counts, trace=tr, setup_s=setup,
-        window_s=window, device=device, on_card=on_card, As_of=run.As_of,
-        _probes={})
+        window_s=window, device=device, on_card=on_card,
+        operands=run.operands, _probes={})
     ctx.probe = lambda name: _probe(ctx, name)
 
     if traced:
@@ -258,15 +266,13 @@ def _probe(ctx, name: str):
     the metrics that read it; a device measurement is None off the card."""
     if name not in ctx._probes:
         if name == "n_pad":
-            C, b = ctx.pool[0]
-            ctx._probes[name] = port.n_pad(C, ctx.As_of(C.shape[0]), b)
+            ctx._probes[name] = port.n_pad(ctx.pool[0], ctx.operands[0])
         elif not ctx.on_card:
             ctx._probes[name] = None
         elif name == "inner_step":
-            C, b = ctx.pool[0]
             solver = ctx.config["solver"]
             ctx._probes[name] = port.inner_step_probe(
-                C, ctx.As_of(C.shape[0]), b, r=int(solver["r0"]),
+                ctx.pool[0], ctx.operands[0], r=int(solver["r0"]),
                 k=int(solver["lbfgs_pairs"]), dtype=solver["dtype"],
                 device=ctx.device)
         else:

@@ -12,7 +12,7 @@ def read(ctx):
     p = ctx.probe("inner_step")
     if p is None or p["ms_per_step"] <= 0:
         return None
-    C, _ = ctx.pool[0]
+    C = ctx.pool[0].C
     flops, nbytes = lbfgs_step.fastdiag_step(p["n_pad"], C.nnz, p["r"],
                                              p["k"])
     least, _ = peaks.least_s(flops, nbytes, p["dtype"])

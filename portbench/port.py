@@ -32,19 +32,44 @@ def constraints(n: int) -> list:
     return [sparse_coo([i], [i], [1.0], n) for i in range(n)]
 
 
-def solve(C, As, b, solver: dict, *, seed: int, maxtime: float,
+def operands(pool: list) -> list:
+    """Each instance's constraints in the port's operand types, in pool
+    order, made once in set-up: its own (``Entries`` as ``sparse_coo``,
+    ``LowRank`` as ``SymLowRank``), or, where it has none, the diagonal
+    constraints of its side, one list per n shared by all such
+    instances."""
+    from sdplrplus_tpu_torch import SymLowRank, sparse_coo
+
+    from .instance import LowRank
+
+    shared, out = {}, []
+    for inst in pool:
+        if inst.constraints is None:
+            if inst.n not in shared:
+                shared[inst.n] = constraints(inst.n)
+            out.append(shared[inst.n])
+        else:
+            out.append([SymLowRank(a.B, a.d) if isinstance(a, LowRank)
+                        else sparse_coo(a.rows, a.cols, a.vals, inst.n)
+                        for a in inst.constraints])
+    return out
+
+
+def solve(inst, As, solver: dict, *, seed: int, maxtime: float,
           device: str) -> dict:
-    """One solve through the port's public entry point."""
+    """One solve of ``inst`` (its constraints ``As`` in the port's types)
+    through the port's public entry point; the constraint types are passed
+    only where the instance has them."""
     from sdplrplus_tpu_torch import sdplr
 
-    n = C.shape[0]
-    tb = float(n) if solver["trace_bound"] == "n" else float(
-        solver["trace_bound"])
-    return sdplr(C, As, b, int(solver["r0"]), ptol=float(solver["ptol"]),
-                 objtol=float(solver["objtol"]), prior_trace_bound=tb,
+    kw = {} if inst.types is None else {"constraint_types": inst.types}
+    return sdplr(inst.C, As, inst.b, int(solver["r0"]),
+                 ptol=float(solver["ptol"]),
+                 objtol=float(solver["objtol"]),
+                 prior_trace_bound=float(inst.trace_bound),
                  numlbfgsvecs=int(solver["lbfgs_pairs"]),
                  dtype=solver["dtype"], printlevel=0, seed=int(seed),
-                 maxtime=float(maxtime), device=device)
+                 maxtime=float(maxtime), device=device, **kw)
 
 
 def counters() -> collections.Counter:
@@ -59,14 +84,15 @@ def counters() -> collections.Counter:
     return c
 
 
-def n_pad(C, As, b) -> int:
+def n_pad(inst, As) -> int:
     """Rows of the port's padded layout of this problem."""
     from sdplrplus_tpu_torch import SDPProblem, compile_problem
 
-    return int(compile_problem(SDPProblem(C, list(As), b, None)).n_pad)
+    return int(compile_problem(
+        SDPProblem(inst.C, list(As), inst.b, inst.types)).n_pad)
 
 
-def inner_step_probe(C, As, b, *, r: int, k: int, dtype: str, device: str,
+def inner_step_probe(inst, As, *, r: int, k: int, dtype: str, device: str,
                      steps=(100, 2000)) -> dict:
     """Device milliseconds per inner L-BFGS step of the port's torch inner
     loop on this instance at rank r, through its captured CUDA-graph chunk:
@@ -85,7 +111,7 @@ def inner_step_probe(C, As, b, *, r: int, k: int, dtype: str, device: str,
     from sdplrplus_tpu_torch.solver.lbfgs import lbfgs_init
 
     dev = torch.device(device)
-    cp = compile_problem(SDPProblem(C, list(As), b, None))
+    cp = compile_problem(SDPProblem(inst.C, list(As), inst.b, inst.types))
     dp = to_device(cp, resolve_dtype(SolverConfig(dtype=dtype)), dev)
     lam = torch.zeros(dp.m, dtype=dp.dtype, device=dev)
     sigma = torch.tensor(2.0, dtype=dp.dtype, device=dev)
@@ -104,7 +130,8 @@ def inner_step_probe(C, As, b, *, r: int, k: int, dtype: str, device: str,
         e0.record()
         carry, _ = inner_chunk(dp, R, G, y, vio, L, gn, lb, lam, sigma,
                                -1.0, float("-inf"), nsteps, k=k,
-                               use_armijo=False, gtol_relative=True,
+                               use_armijo=dp.has_inequalities,
+                               gtol_relative=True,
                                ptol_relative=True, graphs=graphs)
         e1.record()
         torch.cuda.synchronize()

@@ -4,8 +4,8 @@
 
 (SDPLR+'s test/problem.jl; L is the weighted graph Laplacian.) The
 constraint matrices are eᵢeᵢᵀ and b = 1, so the reference never builds
-them. Everything here is NumPy/SciPy in float64 and imports nothing of
-the solver under test.
+them: an instance's ``constraints`` are None. Everything here is
+NumPy/SciPy in float64 and imports nothing of the solver under test.
 
 A solve returns a factor R (X = RRᵀ) and multipliers λ. The reference
 works out what they certify, whatever the solver claimed:
@@ -27,20 +27,23 @@ import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
+from ..instance import Instance
+
 DENSE_EIG_MAX_N = 4096   # above it λ_min is bracketed by inertia counts
 EIG_TOL = 1e-9           # width of that bracket (S's entries are O(1))
 
 
-def formulation(A: sp.spmatrix):
-    """(C, b) of the MaxCut SDP of the symmetric weighted adjacency A:
-    C = -¼·(Diag(A·1) − A) as CSR, b = 1."""
+def formulation(A: sp.spmatrix) -> Instance:
+    """The MaxCut SDP of the symmetric weighted adjacency A:
+    C = -¼·(Diag(A·1) − A) as CSR, b = 1, the diagonal constraints
+    (``constraints`` None), trace bound n."""
     A = sp.csr_matrix(A, dtype=np.float64)
     n = A.shape[0]
     deg = np.asarray(A.sum(axis=1)).ravel()
     C = (-0.25 * (sp.diags(deg) - A)).tocsr()
     C.sum_duplicates()
     C.eliminate_zeros()
-    return C, np.ones(n)
+    return Instance(C, np.ones(n), float(n))
 
 
 def pinfeas(R: np.ndarray, b: np.ndarray) -> float:
@@ -111,10 +114,10 @@ def rel_gap(upper: float, lower: float) -> float:
     return (upper - lower) / min(abs(upper), abs(lower))
 
 
-def certify(C: sp.csr_matrix, b: np.ndarray, trace_bound: float,
-            R: np.ndarray, lam: np.ndarray) -> dict:
+def certify(inst: Instance, R: np.ndarray, lam: np.ndarray) -> dict:
     """The float64 readings of one solve's factor and multipliers."""
+    C, b = inst.C, inst.b
     upper = feasible_objective(C, R, b)
-    lower = dual_bound(C, lam, b, trace_bound)
+    lower = dual_bound(C, lam, b, inst.trace_bound)
     return {"pinfeas": pinfeas(R, b), "obj": upper, "bound": lower,
             "gap": rel_gap(upper, lower)}

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from ..instance import Instance
 from . import maxcut
 
 
@@ -23,10 +24,10 @@ def tf32(x) -> np.ndarray:
     return u.view(np.float32)
 
 
-def certify(C: sp.csr_matrix, b: np.ndarray, trace_bound: float,
-            R: np.ndarray, lam: np.ndarray) -> dict:
+def certify(inst: Instance, R: np.ndarray, lam: np.ndarray) -> dict:
     """``maxcut.certify``'s readings, each computed from TF32 operands
     with float32 sums; λ_min of the TF32-rounded S in float64."""
+    C, b, trace_bound = inst.C, inst.b, inst.trace_bound
     b32 = np.asarray(b, np.float32)
     Rt = tf32(R)
     rows = np.einsum("ij,ij->i", Rt, Rt, dtype=np.float32)

@@ -120,8 +120,8 @@ def test_every_seed_solves_the_same_pool(cell):
 
     def pool(seed):
         got = harness.make_pool(config, mix, np.random.default_rng(seed))
-        return sorted((C.nnz, float(abs(C).sum()), C.data.tobytes())
-                      for C, _ in got)
+        return sorted((i.C.nnz, float(abs(i.C).sum()), i.C.data.tobytes())
+                      for i in got)
 
     assert pool(1) == pool(2147483999)
 

@@ -11,8 +11,9 @@ from portbench.reference import maxcut, tf32
 
 def test_single_edge_is_exact():
     # K2: optimum -1 at X = [[1, -1], [-1, 1]], dual λ = (-1/2, -1/2)
-    C, b = maxcut.formulation(sp.csr_matrix(np.array([[0., 1.], [1., 0.]])))
-    got = maxcut.certify(C, b, 2.0, np.array([[1.0], [-1.0]]),
+    inst = maxcut.formulation(sp.csr_matrix(np.array([[0., 1.], [1., 0.]])))
+    assert inst.trace_bound == 2.0
+    got = maxcut.certify(inst, np.array([[1.0], [-1.0]]),
                          np.array([-0.5, -0.5]))
     assert got["pinfeas"] == 0.0
     assert got["obj"] == pytest.approx(-1.0, abs=1e-15)
@@ -23,13 +24,15 @@ def test_single_edge_is_exact():
 def test_readings_against_dense_arithmetic(monkeypatch):
     rng = np.random.default_rng(3)
     A = gnp.graph({"n": 40, "density_pct": 20}, 5)
-    C, b = maxcut.formulation(A)
+    inst = maxcut.formulation(A)
+    C = inst.C
+    np.testing.assert_array_equal(inst.b, np.ones(40))
     L = np.diag(A.sum(axis=1).A1) - A.toarray()
     np.testing.assert_allclose(C.toarray(), -0.25 * L)
     R = rng.standard_normal((40, 3))
     lam = rng.standard_normal(40)
     Rh = R / np.linalg.norm(R, axis=1)[:, None]
-    got = maxcut.certify(C, b, 40.0, R, lam)
+    got = maxcut.certify(inst, R, lam)
     assert got["pinfeas"] == pytest.approx(
         np.linalg.norm((R * R).sum(1) - 1) / np.sqrt(40), rel=1e-12)
     assert got["obj"] == pytest.approx(np.trace(C.toarray() @ Rh @ Rh.T),
@@ -39,7 +42,7 @@ def test_readings_against_dense_arithmetic(monkeypatch):
                                          rel=1e-12)
     # the sparse eigensolver, used above DENSE_EIG_MAX_N, agrees
     monkeypatch.setattr(maxcut, "DENSE_EIG_MAX_N", 10)
-    assert maxcut.certify(C, b, 40.0, R, lam)["bound"] == pytest.approx(
+    assert maxcut.certify(inst, R, lam)["bound"] == pytest.approx(
         got["bound"], rel=1e-9)
 
 
@@ -47,7 +50,7 @@ def test_readings_against_dense_arithmetic(monkeypatch):
 def test_sparse_min_eig_brackets_the_least_eigenvalue(monkeypatch, ritz_off):
     # a torus S with its bottom eigenvalues clustered, as at a solution
     A = torus.graph({"h": 12, "w": 25}, 4)
-    C, _ = maxcut.formulation(A)
+    C = maxcut.formulation(A).C
     lam = np.linalg.eigvalsh(C.toarray())[0] + np.linspace(0, 1e-3, 300)
     S = (C - sp.diags(lam)).tocsr()
     exact = np.linalg.eigvalsh(S.toarray())[0]
@@ -73,14 +76,14 @@ def test_tf32_rounding():
 
 def test_tf32_control_departs_from_float64():
     A = torus.graph({"h": 10, "w": 30}, 2)
-    C, b = maxcut.formulation(A)
+    inst = maxcut.formulation(A)
     rng = np.random.default_rng(1)
     R = rng.standard_normal((300, 4))
     R /= np.linalg.norm(R, axis=1)[:, None]
     R *= 1 + 0.003 * rng.standard_normal((300, 1))
     lam = -np.asarray(abs(A).sum(axis=1)).ravel() / 2
-    ref = maxcut.certify(C, b, 300.0, R, lam)
-    ctl = tf32.certify(C, b, 300.0, R, lam)
+    ref = maxcut.certify(inst, R, lam)
+    ctl = tf32.certify(inst, R, lam)
     assert abs(ctl["obj"] - ref["obj"]) / abs(ref["obj"]) > 1e-7
     assert abs(ctl["pinfeas"] - ref["pinfeas"]) > 1e-6
 

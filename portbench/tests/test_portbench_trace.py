@@ -41,3 +41,54 @@ def test_reduce_events():
 def test_reduce_events_needs_the_window_span():
     with pytest.raises(RuntimeError):
         trace.reduce_events([_x("k", "kernel", 0.0, 1.0)])
+
+
+def test_idle_gap_label_looks_back_past_512_events():
+    """A gap is put down to the innermost host event open at its middle,
+    however many events closed inside that one before the gap."""
+    events = [_x(trace.WINDOW_SPAN, "user_annotation", 0.0, 10000.0),
+              _x("sdplr.dual_bound", "user_annotation", 10.0, 9000.0)]
+    events += [_x("aten::mul", "cpu_op", 20.0 + 10 * i, 4.0)
+               for i in range(600)]
+    events += [_x("k", "kernel", 6050.0, 10.0, tid=7),
+               _x("k", "kernel", 9500.0, 500.0, tid=7)]
+    got = trace.reduce_events(events)
+    # gaps [0, 6050] (mid 3025) and [6060, 9500] (mid 7780, 600 events
+    # after the bound opened): both the bound's
+    assert got["idle"] == {"sdplr.dual_bound": pytest.approx(9490e-6)}
+    assert got["busy_s"] == pytest.approx(510e-6)
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_idle_gap_label_is_the_latest_event_open(seed):
+    """Against a scan of every host event: the latest-starting one still
+    open at the gap's middle, on random, partly overlapping events."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.uniform(0, 1000, 300))
+    host = [(float(s), float(s + d), f"op{i}") for i, (s, d) in enumerate(
+        zip(starts, rng.exponential(40, 300)))]
+    kern = [(float(s), float(s + d)) for s, d in zip(
+        np.sort(rng.uniform(0, 1000, 60)), rng.uniform(0, 3, 60))]
+    events = [_x(trace.WINDOW_SPAN, "user_annotation", 0.0, 1000.0)]
+    events += [_x(n, "cpu_op", s, e - s) for s, e, n in host]
+    events += [_x("k", "kernel", s, e - s, tid=7) for s, e in kern]
+    busy = trace._union(kern)
+    gaps, t = [], 0.0
+    for s, e in busy:
+        if s > t:
+            gaps.append((t, s))
+        t = max(t, e)
+    if t < 1000.0:
+        gaps.append((t, 1000.0))
+    want = {}
+    for s, e in gaps:
+        mid = 0.5 * (s + e)
+        open_ = [h for h in host if h[0] <= mid <= h[1]]
+        label = max(open_)[2] if open_ else "host: no operator open"
+        want[label] = want.get(label, 0.0) + (e - s) * 1e-6
+    got = trace.reduce_events(events)["idle"]
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k] == pytest.approx(want[k])

@@ -97,16 +97,23 @@ def reduce_events(events: list) -> dict:
         gaps.append((t, w1))
     host.sort()
     starts = [h[0] for h in host]
+    # back[j]: the latest event before j that ends after it; the events
+    # between them end no later than j, so a look-back may skip them
+    back, stack = [], []
+    for j, (_, end, _) in enumerate(host):
+        while stack and host[stack[-1]][1] <= end:
+            stack.pop()
+        back.append(stack[-1] if stack else -1)
+        stack.append(j)
     idle = collections.defaultdict(float)
     for s, e in gaps:
         mid = 0.5 * (s + e)
-        label = "host: no operator open"
-        i = bisect.bisect_right(starts, mid) - 1
-        # the latest-starting event still open at mid is the innermost
-        for j in range(i, max(i - 512, -1), -1):
-            if host[j][1] >= mid:
-                label = host[j][2]
-                break
+        # the latest-starting event still open at mid is the innermost,
+        # however far back it opened
+        j = bisect.bisect_right(starts, mid) - 1
+        while j >= 0 and host[j][1] < mid:
+            j = back[j]
+        label = host[j][2] if j >= 0 else "host: no operator open"
         idle[label] += (e - s) * 1e-6
     return {"kernels": dict(kernels), "busy_s": busy_us * 1e-6,
             "window_s": (w1 - w0) * 1e-6, "idle": dict(idle)}
