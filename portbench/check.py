@@ -16,7 +16,10 @@ claimed. The numbers compared, each the worst over the solves checked:
 * ``bound_over``: (claimed bound − reference's) / |reference's|, > 0
   where the claimed certificate is stronger than λ gives.
 
-The last three limits are the configuration's, set from readings of
+A limit named ``<number>_median`` holds the median of ``<number>`` over
+the solves checked in place of its worst: a number whose worst swings
+with a rare solve is compared by where its bulk lies. The limits but
+``pinfeas`` and ``gap`` are the configuration's, set from readings of
 sound runs and of the control (``control.py``), as ``PERF.md`` records.
 """
 
@@ -64,6 +67,9 @@ def limits(config: dict) -> dict:
     return lim
 
 
+MEDIAN = "_median"
+
+
 def worst(rows: list) -> dict:
     """Each number's worst (largest) reading over ``rows``; a solve that
     returned nothing to judge reads +inf."""
@@ -75,6 +81,24 @@ def worst(rows: list) -> dict:
     return out
 
 
+def read(rows: list, names) -> dict:
+    """The reading of each of ``names`` over ``rows``: its worst, or for
+    ``<number>_median`` the median of ``<number>`` (a solve that returned
+    nothing to judge reads +inf there too)."""
+    got = worst(rows)
+    out = {}
+    for k in names:
+        if k.endswith(MEDIAN) and rows:
+            base = k[:-len(MEDIAN)]
+            vals = [r.get(base) for r in rows]
+            vals = [float("inf") if v is None or not np.isfinite(v) else v
+                    for v in vals]
+            out[k] = float(np.median(vals))
+        else:
+            out[k] = got.get(k, float("inf"))
+    return out
+
+
 def claimed(inst, solve: dict) -> dict:
     """What the solve itself claimed."""
     return solve["claims"]
@@ -82,7 +106,7 @@ def claimed(inst, solve: dict) -> dict:
 
 def judge(records: list, instances: list, config: dict, seed: int,
           claims_of=claimed) -> tuple:
-    """(correct, {name: (worst reading, limit)}, solves checked).
+    """(correct, {name: (reading, limit)}, solves checked).
     ``claims_of(instance, solve)`` gives the claims judged: the solve's
     own, or the control's (control.py). The reference gets the whole
     instance: ``certify(instance, R, λ)``."""
@@ -98,8 +122,8 @@ def judge(records: list, instances: list, config: dict, seed: int,
         inst = instances[s["instance"]]
         r = ref.certify(inst, s["R"], s["lam"])
         rows.append(numbers(r, claims_of(inst, s), solver))
-    got = worst(rows)
     lim = limits(config)
-    table = {k: (got.get(k, float("inf")), lim[k]) for k in lim}
+    got = read(rows, lim)
+    table = {k: (got[k], lim[k]) for k in lim}
     correct = bool(checked) and all(v <= l for v, l in table.values())
     return correct, table, checked

@@ -4,8 +4,9 @@ own size and load, then judges the window's solves three ways.
 
 * ``program``: the port's claims against the float64 reference, as a
   benchmark run judges them (the lower readings);
-* ``control``: the TF32 reference's readings put in the port's place, at
-  the port's own factors and multipliers (the upper readings);
+* ``control``: the problem's TF32 control, ``certify_tf32(instance, R,
+  λ)`` of its reference (``reference/<problem>.py``), put in the port's
+  place at the port's own factors and multipliers (the upper readings);
 * with ``--fault``, the port's claims with the fault planted under the
   timed path (faults.py).
 
@@ -26,15 +27,27 @@ import sys
 from . import faults
 
 
+def control_of(config: dict):
+    """The claims of the configuration's problem's TF32 control, as
+    ``check.judge`` takes them (``claims_of``)."""
+    from . import check
+
+    problem = config["problem"]
+    certify_tf32 = getattr(check.reference(problem), "certify_tf32", None)
+    if certify_tf32 is None:
+        raise LookupError(f"reference/{problem}.py has no certify_tf32("
+                          "instance, R, lam): the problem brings no TF32 "
+                          "control")
+    return lambda inst, s: certify_tf32(inst, s["R"], s["lam"])
+
+
 def readings(root: str, workload: str, seeds: list, seconds: float, *,
              fault: str | None = None, device: str = "cuda"):
     """Yield one dict of readings per seed."""
     from . import check, harness
-    from .reference import tf32
 
-    def tf32_claims(inst, s):
-        return tf32.certify(inst, s["R"], s["lam"])
-
+    if fault is None:
+        control_claims = control_of(harness.load_cell(root, workload)[2])
     for n, seed in enumerate(seeds):
         with faults.planted(fault) if fault else contextlib.nullcontext():
             run = harness.Run(root, workload, seed, device=device,
@@ -48,7 +61,7 @@ def readings(root: str, workload: str, seeds: list, seconds: float, *,
         out["correct"] = ok
         if fault is None:
             ok_c, table_c, _ = check.judge(records, run.pool, run.config,
-                                           seed, claims_of=tf32_claims)
+                                           seed, claims_of=control_claims)
             out["control"] = {k: v for k, (v, _) in table_c.items()}
             out["control_correct"] = ok_c
         yield out
@@ -70,9 +83,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("the readings need a CUDA card", file=sys.stderr)
         return 2
-    for out in readings(root, args.workload, args.seeds, args.seconds,
-                        fault=args.fault):
-        print(json.dumps(out), flush=True)
+    try:
+        for out in readings(root, args.workload, args.seeds, args.seconds,
+                            fault=args.fault):
+            print(json.dumps(out), flush=True)
+    except LookupError as e:
+        print(e, file=sys.stderr)
+        return 2
     return 0
 
 

@@ -10,12 +10,20 @@ gives it:
   solver settings, check limits;
 * graph family ``<f>`` named by a configuration: ``families/<f>.py``;
 * problem ``<p>``: its plain reference, ``reference/<p>.py``, whose
-  ``formulation(graph, **params)`` returns an ``instance.Instance`` and
-  whose ``certify(instance, R, λ)`` returns the check's readings;
+  ``formulation(graph, **params)`` returns an ``instance.Instance``,
+  whose ``certify(instance, R, λ)`` returns the check's readings, and
+  whose ``certify_tf32(instance, R, λ)`` returns the same readings in
+  TF32, the check's control (``control.py``);
 * traffic mix ``<t>``: ``mixes/<t>.json`` (pool size, per-solve maxtime,
   traced solves);
 * per-layer metric ``<m>``: ``metrics/<m>.py``, whose ``read(ctx)``
-  returns the number or None where the run has nothing to read.
+  returns the number or None where the run has nothing to read (the
+  metric is then left out of the line).
+
+A metric whose entry has no ``workloads`` list comes with every cell,
+those added later too: the per-layer metrics that read what every solve
+path has (the solves' preprocessing time and dual passes, the
+``sdplr.*`` spans, the trace's idle share) need no edit for a new cell.
 """
 
 from __future__ import annotations

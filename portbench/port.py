@@ -1,6 +1,6 @@
 """Everything the benchmark takes from the system under test, the
 PyTorch/CUDA port ``sdplrplus_tpu_torch``: its public entry ``sdplr``,
-the counters it keeps (inner-loop STATS, ELL SpMMs, gather and K1
+the counters it keeps (inner-loop STATS, ELL SpMMs, gather, K1 and K2
 launches) and, for the inner-step probe, its inner loop. No other module
 of the harness imports the port.
 
@@ -81,6 +81,7 @@ def counters() -> collections.Counter:
     c["spmm.ell"] = spmm.CALLS["spmm_ell"]
     c["gather_rows.launches"] = gather.ROWS.launches
     c["k1.launches"] = megakernel.K1.launches
+    c["k2.launches"] = megakernel.K2.launches
     return c
 
 

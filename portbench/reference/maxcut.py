@@ -19,6 +19,9 @@ works out what they certify, whatever the solver claimed:
   bound τ, a lower bound on the optimum by weak duality for any λ
   (λ_min by LAPACK, or bracketed from below to within 1e-9 at large n);
 * ``rel_gap``: (upper − lower) / min(|upper|, |lower|).
+
+``certify_tf32`` is the check's control (``control.py``): the same
+readings from TF32 operands with float32 sums (``tf32.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
 from ..instance import Instance
+from .tf32 import tf32
 
 DENSE_EIG_MAX_N = 4096   # above it λ_min is bracketed by inertia counts
 EIG_TOL = 1e-9           # width of that bracket (S's entries are O(1))
@@ -120,4 +124,24 @@ def certify(inst: Instance, R: np.ndarray, lam: np.ndarray) -> dict:
     upper = feasible_objective(C, R, b)
     lower = dual_bound(C, lam, b, inst.trace_bound)
     return {"pinfeas": pinfeas(R, b), "obj": upper, "bound": lower,
+            "gap": rel_gap(upper, lower)}
+
+
+def certify_tf32(inst: Instance, R: np.ndarray, lam: np.ndarray) -> dict:
+    """``certify``'s readings, each computed from TF32 operands with
+    float32 sums; λ_min of the TF32-rounded S in float64."""
+    C, b, trace_bound = inst.C, inst.b, inst.trace_bound
+    b32 = np.asarray(b, np.float32)
+    Rt = tf32(R)
+    rows = np.einsum("ij,ij->i", Rt, Rt, dtype=np.float32)
+    pinfeas = float(np.linalg.norm(rows - b32) / np.linalg.norm(b32))
+    Rh = tf32(Rt * (np.sqrt(b32) / np.sqrt(rows))[:, None])
+    C32 = sp.csr_matrix((tf32(C.data), C.indices, C.indptr), shape=C.shape)
+    upper = float(np.sum(Rh * (C32 @ Rh), dtype=np.float32))
+    lam32 = tf32(lam)
+    S = (C32 - sp.diags(lam32)).tocsr()
+    S.data = tf32(S.data).astype(np.float64)
+    lower = float(np.float32(lam32 @ b32)
+                  + np.float32(trace_bound * min(0.0, min_eig(S))))
+    return {"pinfeas": pinfeas, "obj": upper, "bound": lower,
             "gap": rel_gap(upper, lower)}

@@ -8,16 +8,22 @@ with d the degrees, vol G = Σd, ub = (1 − μ)/(μ·vol G), lb = μ/((1 − μ
 G) and the trace bound n·ub. Every instance brings its own constraints
 (they depend on its degrees), their types and a trace bound that depends
 on it. ``certify`` works out plain readings and keeps each instance it was
-handed; it is no certificate for inequality multipliers."""
+handed; it is no certificate for inequality multipliers. ``certify_tf32``,
+the problem's control, works out the same readings from TF32-rounded R, λ
+and C, and keeps its instances apart."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import scipy.sparse as sp
 
 from portbench.instance import Entries, Instance, LowRank
+from portbench.reference.tf32 import tf32
 
-CERTIFIED = []   # the instances ``certify`` was handed, in order
+CERTIFIED = []    # the instances ``certify`` was handed, in order
+CONTROLLED = []   # the instances ``certify_tf32`` was handed, in order
 
 
 def formulation(A: sp.spmatrix, mu: float) -> Instance:
@@ -52,6 +58,18 @@ def values(inst: Instance, R: np.ndarray) -> np.ndarray:
 
 def certify(inst: Instance, R: np.ndarray, lam: np.ndarray) -> dict:
     CERTIFIED.append(inst)
+    return readings(inst, R, lam)
+
+
+def certify_tf32(inst: Instance, R: np.ndarray, lam: np.ndarray) -> dict:
+    CONTROLLED.append(inst)
+    C = inst.C
+    C = sp.csr_matrix((tf32(C.data), C.indices, C.indptr), shape=C.shape)
+    return readings(dataclasses.replace(inst, C=C),
+                    tf32(R).astype(np.float64), tf32(lam).astype(np.float64))
+
+
+def readings(inst: Instance, R: np.ndarray, lam: np.ndarray) -> dict:
     R = np.asarray(R, np.float64)
     vio = values(inst, R) - inst.b
     vio[inst.types] = np.maximum(vio[inst.types], 0.0)

@@ -38,3 +38,19 @@ def test_short_run_on_the_card(card, cell):
     assert line["device"]["count"] == 1
     assert list(line)[-1] == "check"
     assert out.stderr.strip().splitlines()[-1].startswith("check ")
+
+
+@pytest.mark.cuda
+def test_k2_is_not_launched_on_maxcut_g1(card):
+    """The G1 MaxCut path runs K1 and never K2: over a short window of the
+    cell, ``k2.launches`` stays where it was while ``k1.launches`` grows."""
+    from portbench import port
+
+    port.use_build_dir(os.path.join(ROOT, "portbench", "_build"))
+    run = harness.Run(ROOT, "maxcut-g1.gset", 2147483998)
+    before = port.counters()
+    records = run.window(2.0)[0]
+    after = port.counters()
+    assert records and all(s["certified"] for s in records)
+    assert after["k1.launches"] > before["k1.launches"]
+    assert after["k2.launches"] == before["k2.launches"]

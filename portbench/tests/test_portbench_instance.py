@@ -1,7 +1,8 @@
 """The harness's problem interface on the CPU: an instance brings its own
-constraints, constraint types, trace bound and parameters, through
-``make_pool``, ``Loop.solve`` and ``check.judge``; and the MaxCut cells'
-pools, shared constraints, solver call and readings stay as they were."""
+constraints, constraint types, trace bound, parameters and TF32 control,
+through ``make_pool``, ``Loop.solve``, ``check.judge`` and
+``control.readings``; and the MaxCut cells' pools, shared constraints,
+solver call and readings stay as they were."""
 
 import hashlib
 import os
@@ -11,10 +12,10 @@ import numpy as np
 import pytest
 
 import sdplrplus_tpu_torch
-from portbench import check, harness, port
+from portbench import check, control, harness, port
 from portbench.families import gnp, torus
 from portbench.instance import Instance, resolve_trace_bound
-from portbench.reference import maxcut, tf32
+from portbench.reference import maxcut
 from portbench.tests import mucond_toy
 
 ROOT = os.path.dirname(harness.HERE)
@@ -35,6 +36,7 @@ def toy(monkeypatch):
     monkeypatch.setitem(sys.modules, "portbench.reference.mucond_toy",
                         mucond_toy)
     mucond_toy.CERTIFIED.clear()
+    mucond_toy.CONTROLLED.clear()
     return mucond_toy
 
 
@@ -113,6 +115,56 @@ def test_instance_with_its_own_constraints_through_the_loop(
     for i, got in zip(checked, mucond_toy.CERTIFIED):
         assert got is pool[records[i]["instance"]]
     assert all(np.isfinite(v) for v, _ in table.values())
+
+
+@pytest.fixture
+def toy_cell(toy, monkeypatch):
+    """A cell of the test's problem, as ``load_cell`` would read it from
+    BENCHMARK.json."""
+    real = harness.load_cell
+
+    def load_cell(root, workload):
+        if workload != "mucond_toy.cell":
+            return real(root, workload)
+        cell = {"name": workload, "config": "mucond_toy",
+                "traffic": "toy", "chips": 1, "why": "test"}
+        return {}, cell, TOY, TOY_MIX
+
+    monkeypatch.setattr(harness, "load_cell", load_cell)
+    return "mucond_toy.cell"
+
+
+def test_control_readings_take_the_problems_own_control(
+        toy, toy_cell, few_threads):
+    outs = list(control.readings(ROOT, toy_cell, [2147483905, 6], 1e-3,
+                                 device="cpu"))
+    assert [o["seed"] for o in outs] == [2147483905, 6]
+    for out in outs:
+        assert out["solves"] >= 1 and out["checked"] >= 1
+        assert set(out["control"]) == set(out["program"]) == {
+            "pinfeas", "gap", "obj_dev", "pinfeas_dev", "bound_over"}
+        assert all(np.isfinite(v) for v in out["control"].values())
+        assert isinstance(out["control_correct"], bool)
+    # the control was handed the checked solves' own instances, which the
+    # reference certified twice: once for the program, once for the control
+    checked = sum(o["checked"] for o in outs)
+    assert len(toy.CONTROLLED) == checked
+    assert len(toy.CERTIFIED) == 2 * checked
+    assert {id(i) for i in toy.CONTROLLED} <= {id(i) for i in toy.CERTIFIED}
+
+
+def test_a_problem_without_a_control_stops_by_name(toy, toy_cell,
+                                                   monkeypatch):
+    monkeypatch.delattr(toy, "certify_tf32")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a solve ran before the control was looked up")
+
+    monkeypatch.setattr(port, "solve", refuse)
+    with pytest.raises(LookupError, match=r"reference/mucond_toy\.py has no "
+                                          r"certify_tf32"):
+        next(control.readings(ROOT, toy_cell, [1], 1.0, device="cpu"))
+    assert callable(control.control_of(dict(TOY, problem="maxcut")))
 
 
 def test_maxcut_call_is_the_call_it_was(monkeypatch):
@@ -222,6 +274,24 @@ def test_readings_are_bit_identical(monkeypatch, graph, ref):
         monkeypatch.setattr(maxcut, "DENSE_EIG_MAX_N", 10)
     assert isinstance(inst, Instance)
     R, lam = _fixed(inst.C, seed)
-    got = {"maxcut": maxcut, "tf32": tf32}[ref].certify(inst, R, lam)
+    got = {"maxcut": maxcut.certify,
+           "tf32": maxcut.certify_tf32}[ref](inst, R, lam)
     assert {k: float(v).hex() for k, v in got.items()} == \
         READINGS[(graph, ref)]
+
+
+def test_a_median_limit_reads_the_median_of_its_number():
+    rows = [{"gap": 0.1, "bound_over": -1e-3},
+            {"gap": 0.2, "bound_over": 2e-4},
+            {"gap": 0.3, "bound_over": -2e-3}]
+    got = check.read(rows, ["gap", "bound_over", "bound_over_median"])
+    assert got == {"gap": 0.3, "bound_over": 2e-4,
+                   "bound_over_median": -1e-3}
+    # a solve that returned nothing reads +inf in the median too
+    rows.append({"gap": None, "bound_over_median": None})
+    got = check.read(rows, ["gap", "bound_over_median"])
+    assert got["gap"] == float("inf")
+    assert got["bound_over_median"] == pytest.approx(-4e-4, rel=1e-12)
+    rows += [{"gap": None, "bound_over_median": None}] * 2
+    assert check.read(rows, ["bound_over_median"])[
+        "bound_over_median"] == float("inf")

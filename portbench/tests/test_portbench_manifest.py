@@ -2,6 +2,7 @@
 mix and metric resolves to its files by name; names, units and bounds are
 within their limits."""
 
+import copy
 import json
 import os
 import re
@@ -57,13 +58,25 @@ def test_cell_resolves(cell):
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
     assert os.path.exists(os.path.join(harness.HERE, "families",
                                        f"{config['family']}.py"))
-    assert harness.check.reference(config["problem"]).certify
+    ref = harness.check.reference(config["problem"])
+    assert callable(ref.certify) and callable(ref.certify_tf32)
     assert set(mix) == harness.MIX_KEYS and mix["loop"] == "closed"
     assert mix["pool"] >= 1
     assert harness.load_module("families", config["family"]).graph
     names = {m["name"] for m in harness.metrics_of(MAN["end_to_end"], cell)}
     assert "setup_s" in names and len(names) >= 2
     assert harness.metrics_of(MAN["per_layer"], cell)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_limits_name_numbers_the_check_reads(cell):
+    config = harness.load_cell(ROOT, cell)[2]
+    numbers = set(harness.check.numbers(
+        {"pinfeas": 0.0, "gap": 0.0, "obj": 1.0, "bound": 1.0},
+        {"obj": 1.0, "pinfeas": 0.0, "bound": 1.0}, config["solver"]))
+    for name in harness.check.limits(config):
+        base = name.removesuffix(harness.check.MEDIAN)
+        assert base in numbers, (cell, name)
 
 
 def test_configurations():
@@ -140,3 +153,33 @@ def test_a_mix_the_harness_does_not_honour_is_refused(extra):
 def test_metric_reader_resolves(name):
     mod = harness.load_module("metrics", name)
     assert callable(mod.read)
+
+
+# the per-layer metrics that read what every solve path has, and so come
+# with every cell; and each MaxCut cell's per-layer metrics as the cells
+# reported them when these six still named the two cells
+SHARED = {"preprocess_ms", "dual_passes_per_solve", "device_idle_pct",
+          "dual_bound_ms", "boundary_ms", "driver_self_ms"}
+REPORTED = {
+    "maxcut-g81.gset": SHARED | {"host_reads_per_step", "inner_step_ms",
+                                 "gather_us", "step_roofline",
+                                 "capture_ms"},
+    "maxcut-g1.gset": SHARED | {"k1_roofline"},
+}
+
+
+def test_a_new_cell_reports_the_shared_metrics():
+    man = copy.deepcopy(MAN)
+    new = {"name": "third.cell", "config": MAN["configs"][0]["name"],
+           "traffic": "gset.pool64.t10", "chips": 1, "why": "a new cell"}
+    man["workloads"].append(new)
+    every = {m["name"] for m in man["per_layer"] if "workloads" not in m}
+    assert SHARED <= every
+    got = {m["name"] for m in harness.metrics_of(man["per_layer"],
+                                                 "third.cell")}
+    assert got == every
+    assert {m["name"] for m in harness.metrics_of(
+        man["end_to_end"], "third.cell")} >= {"solve_s", "setup_s"}
+    for cell, want in REPORTED.items():
+        assert {m["name"] for m in harness.metrics_of(
+            man["per_layer"], cell)} == want | every

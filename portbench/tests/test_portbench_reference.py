@@ -83,7 +83,7 @@ def test_tf32_control_departs_from_float64():
     R *= 1 + 0.003 * rng.standard_normal((300, 1))
     lam = -np.asarray(abs(A).sum(axis=1)).ravel() / 2
     ref = maxcut.certify(inst, R, lam)
-    ctl = tf32.certify(inst, R, lam)
+    ctl = maxcut.certify_tf32(inst, R, lam)
     assert abs(ctl["obj"] - ref["obj"]) / abs(ref["obj"]) > 1e-7
     assert abs(ctl["pinfeas"] - ref["pinfeas"]) > 1e-6
 
