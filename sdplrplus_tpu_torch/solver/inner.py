@@ -51,12 +51,19 @@ each replay adds the launches and calls the captured program made
 (``gather.KERNELS``, ``spmm.CALLS``, ``comm.CALLS``). ``STATS`` counts
 the loop's own work: steps taken, chunks run, host reads, masked steps,
 replays, captures and the warm-up steps that precede a capture.
+
+Every capture, here and in solver/inner_entry.py, goes through
+``capture_graph``: into one memory pool per (device, graph kind), kept
+for the process, with no device synchronization and no emptied cache,
+so a solve's capture reuses the memory of the solve before.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import weakref
 from typing import Any
 
 import torch
@@ -87,9 +94,12 @@ WARMUP_STEPS = 2       # single steps run eagerly before a capture
 SIGMA_CAP = 2.0 ** 100  # σ at or above it is a failed state
 
 # "steps" taken, "chunks" run, host "reads", "masked" steps (run in a
-# chunk, not taken), graph "replays", "captures", "warmup_steps"; and,
-# counted by solver/major.py, the state machine's "branch_reads" (one per
-# body: an activation or a boundary)
+# chunk, not taken), graph "replays", "captures", "warmup_steps";
+# "pooled_captures" (graphs captured into a kept pool, ``capture_graph``)
+# and "capture_frees" (the allocator's device frees inside
+# ``sdplr.inner.capture`` spans); and, counted by solver/major.py, the
+# state machine's "branch_reads" (one per body: an activation or a
+# boundary)
 STATS = collections.Counter()
 
 
@@ -316,6 +326,117 @@ class _EagerChunks:
                 return c, (steps, head, stag), chunks
 
 
+# ---- graph capture into a memory pool kept for the process ----------------
+
+class _GraphPool:
+    """The memory of one kind of graph on one device, kept for the
+    process: a pool id (``torch.cuda.graph_pool_handle``); a keeper, a
+    one-node graph captured into the pool when it is made and never
+    replayed, which holds the pool's use count above zero in the device
+    and the pinned-host caching allocators (a pool whose last graph is
+    released is otherwise marked freeable: an emptied cache then returns
+    its memory to the driver, and a capture into it before that fails the
+    allocator's check); the side stream on which every warm-up and
+    capture of that kind runs (the allocator reuses a block on the stream
+    that freed it); and a weak reference to the runner whose graph holds
+    the pool."""
+
+    def __init__(self, device: torch.device):
+        self.id = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device=device)
+        self.owner = None
+        # thread_local: an NCCL watchdog thread may run meanwhile
+        self.keeper = self.capture(lambda: torch.zeros((), device=device),
+                                   "thread_local")
+
+    def on_stream(self, work):
+        """``work()`` on the side stream, after the current stream's work
+        so far and before its work from now on."""
+        current = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            out = work()
+        current.wait_stream(self.stream)
+        return out
+
+    def capture(self, program, mode: str):
+        graph = torch.cuda.CUDAGraph()
+
+        def work():
+            graph.capture_begin(pool=self.id, capture_error_mode=mode)
+            try:
+                program()
+            finally:
+                graph.capture_end()
+
+        self.on_stream(work)
+        return graph
+
+
+_POOLS: dict = {}   # (device, kind) → _GraphPool
+
+
+def graph_pool(device, kind: str) -> _GraphPool:
+    """The kept pool of graphs of ``kind`` ("inner", "entry") on
+    ``device``, made at its first use."""
+    key = (torch.device(device), kind)
+    if key not in _POOLS:
+        _POOLS[key] = _GraphPool(key[0])
+    return _POOLS[key]
+
+
+def capture_graph(owner, program, device, kind: str,
+                  mode: str = "global"):
+    """Capture ``program()`` as a CUDA graph into the kept pool of
+    ``kind`` on ``device`` and return it; ``owner`` is the runner that
+    keeps the graph in its ``graph`` attribute.
+
+    The capture runs on the pool's side stream, which first waits on the
+    current stream, and the current stream waits on it afterwards. Unlike
+    ``torch.cuda.graph(...)``, this synchronizes nothing, collects no
+    garbage and empties no cache: the allocator keeps its cached blocks,
+    and each capture of a kind takes the memory of the one before. ``mode``
+    is the capture's ``capture_error_mode``.
+
+    One live graph per pool: before the capture begins, the graph that
+    held the pool is released (reset, and dropped by its runner, which
+    captures again if it is run again). So two graphs of one pool are
+    never replayed in turn. That matters because the second capture lays
+    its intermediates, and any tensor it keeps, over the memory that the
+    first graph's replays write: a replay of the first would overwrite
+    them."""
+    pool = graph_pool(device, kind)
+    old = pool.owner() if pool.owner is not None else None
+    if old is not None and old.graph is not None:
+        old.graph.reset()
+        old.graph = None
+    pool.owner = None
+    graph = pool.capture(program, mode)
+    pool.owner = weakref.ref(owner)
+    STATS["pooled_captures"] += 1
+    return graph
+
+
+def _device_frees(device) -> int:
+    """The allocator's device frees so far (``num_device_free``) on a
+    CUDA device; 0 elsewhere."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.memory_stats(device).get("num_device_free", 0)
+
+
+@contextlib.contextmanager
+def capture_span(device):
+    """The ``sdplr.inner.capture`` span (warm-up steps and the capture),
+    adding the allocator's device frees inside it to
+    ``STATS["capture_frees"]``."""
+    frees = _device_frees(device)
+    with span("sdplr.inner.capture"):
+        yield
+    STATS["capture_frees"] += _device_frees(device) - frees
+
+
 class _InnerGraph:
     """The chunk program captured as a CUDA graph on static buffers: the
     carry and the major iteration's inputs (λ, σ, stag_tol, cur_gtol,
@@ -329,32 +450,32 @@ class _InnerGraph:
         self.ins = [x.clone() for x in (lam, sigma, stag_tol, cur_gtol,
                                         max_steps)]
         self.status = torch.zeros(4, dtype=torch.int64, device=c.R.device)
-        with span("sdplr.inner.capture"):
+        self.graph = None
+        with capture_span(c.R.device):
             self._warm_up()
             self.per_replay = launches_of(self._capture)
         STATS["captures"] += 1
 
     def _warm_up(self):
-        """Single steps on a side stream: the gather library's build,
-        library handles, workspaces and the cached index tensors are made
-        outside the capture (real launches: they stay counted)."""
-        dev = self.c.R.device
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        """Single steps on the pool's side stream: the gather library's
+        build, library handles, workspaces and the cached index tensors
+        are made outside the capture (real launches: they stay
+        counted)."""
+        def steps():
             for _ in range(WARMUP_STEPS):
                 self._program(1)
-        torch.cuda.current_stream(dev).wait_stream(side)
+
+        graph_pool(self.c.R.device, "inner").on_stream(steps)
         STATS["warmup_steps"] += WARMUP_STEPS
 
     def _capture(self):
-        """Capture the K-step program. A collective on an NCCL mesh is
-        issued with its own stream and watchdog thread, so there only
-        this thread's calls are held to the capture's rules."""
+        """Capture the K-step program into the kept pool. A collective on
+        an NCCL mesh is issued with its own stream and watchdog thread,
+        so there only this thread's calls are held to the capture's
+        rules."""
         mode = "global" if self.dp.spmd is None else "thread_local"
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode=mode):
-            self._program(self.K)
+        self.graph = capture_graph(self, lambda: self._program(self.K),
+                                   self.c.R.device, "inner", mode)
 
     def _program(self, n_steps: int):
         c, status = chunk_program(self.dp, self.c, *self.ins, n_steps,
@@ -382,13 +503,15 @@ class _InnerGraph:
 class InnerGraphs:
     """The captured chunk program of one solve: at most one graph, for
     the problem, rank and engine in use; another replaces it, the old
-    graph and its memory pool released first."""
+    graph released first. A graph that a later capture released (one
+    live graph per pool, ``capture_graph``) is captured again."""
 
     def __init__(self):
         self._g = None
 
     def get(self, key, dp, make) -> _InnerGraph:
-        if self._g is None or self._g.key != key or self._g.dp is not dp:
+        g = self._g
+        if g is None or g.key != key or g.dp is not dp or g.graph is None:
             self._g = None
             self._g = make()
         return self._g

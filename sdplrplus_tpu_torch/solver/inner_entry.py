@@ -43,8 +43,7 @@ from ..ops.entrymask import (
     vio_norm_entry,
 )
 from ..parallel.comm import dp_psum
-from ..utils.timing import span
-from .inner import InnerCarry
+from .inner import InnerCarry, capture_graph, capture_span, graph_pool
 from .lbfgs import LBFGSState, lbfgs_direction, lbfgs_push
 
 
@@ -139,18 +138,15 @@ class _EntryGraph:
         self.sigma, self.stag_tol = sigma.clone(), stag_tol.clone()
         self.cur_gtol = cur_gtol.clone()
         self.cont = torch.zeros((), dtype=torch.bool, device=c.R.device)
-        # warm-up on a side stream (library handles and workspaces are
-        # made outside the capture), then capture one step
-        with span("sdplr.inner.capture"):
-            side = torch.cuda.Stream(device=c.R.device)
-            side.wait_stream(torch.cuda.current_stream(c.R.device))
-            with torch.cuda.stream(side):
-                for _ in range(2):
-                    self._body()
-            torch.cuda.current_stream(c.R.device).wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self._body()
+        self.graph = None
+        # warm-up on the pool's side stream (library handles and
+        # workspaces are made outside the capture), then capture one step
+        # into the kept pool
+        dev = c.R.device
+        with capture_span(dev):
+            graph_pool(dev, "entry").on_stream(
+                lambda: [self._body() for _ in range(2)])
+            self.graph = capture_graph(self, self._body, dev, "entry")
 
     def _body(self):
         n = entry_step(self.dp, self.c, self.Lam_ew, self.lam_ex, self.sigma,
@@ -184,8 +180,9 @@ def _graph_key(dp, c: EntryCarry, k: int, gtol_relative: bool):
 
 class EntryGraphs:
     """The captured entry step of one solve: at most one graph, for the
-    problem and rank in use; another problem or rank replaces it, and the
-    graph's memory goes with the solve that made this object."""
+    problem and rank in use; another problem or rank replaces it, the old
+    graph released first, and so does a later capture into the kept pool
+    (``inner.capture_graph``), after which the step is captured again."""
 
     def __init__(self):
         self._g = None
@@ -193,8 +190,9 @@ class EntryGraphs:
     def get(self, dp, c, Lam_ew, lam_ex, sigma, stag_tol, cur_gtol, *,
             k: int, gtol_relative: bool) -> _EntryGraph:
         key = _graph_key(dp, c, k, gtol_relative)
-        if self._g is None or self._g.key != key or self._g.dp is not dp:
-            self._g = None          # free the old graph's pool first
+        g = self._g
+        if g is None or g.key != key or g.dp is not dp or g.graph is None:
+            self._g = None          # release the old graph first
             self._g = _EntryGraph(dp, c, Lam_ew, lam_ex, sigma, stag_tol,
                                   cur_gtol, k=k, gtol_relative=gtol_relative)
         return self._g

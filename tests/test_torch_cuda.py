@@ -893,6 +893,56 @@ def test_inner_chunk_graph_matches_the_eager_program(h100, engine):
 
 
 @pytest.mark.cuda
+def test_inner_graphs_in_one_pool_match_the_eager_program(h100):
+    """Captures into the kept pool, one after the other, on the dense
+    engine in float64: 25 steps at rank 6, then at rank 3 through the
+    same ``InnerGraphs`` (a new key: the first graph released, a second
+    capture), then a capture at rank 6 by another ``InnerGraphs``, which
+    releases the rank-3 graph, so the first captures again when it runs
+    next. Every capture goes into the pool and frees no device memory,
+    and every graph's carry equals the eager program's bit for bit."""
+    from sdplrplus_tpu_torch.solver import inner
+    from sdplrplus_tpu_torch.solver.al import al_value_grad
+
+    dp, R6, lam, _ = _chunk_case("dense")
+    t = lambda x: torch.tensor(x, dtype=torch.float64, device="cuda")
+    fields = lambda c: (c.R, c.G, c.y_full, c.vio_raw, c.L_val,
+                        c.grad_norm, c.lbfgs.s_hist, c.lbfgs.y_hist,
+                        c.lbfgs.rho, c.lbfgs.sty, c.lbfgs.yty)
+
+    def run(R, graph, graphs=None):
+        L, vio, G, y, gn, _ = al_value_grad(dp, R, lam, t(2.0), True, True)
+        c, _ = inner.inner_chunk(
+            dp, R, G, y, vio, L, gn,
+            lbfgs_init(4, dp.n_pad, R.shape[1], torch.float64, "cuda"),
+            lam, t(2.0), -1.0, float("-inf"), 25, k=4, use_armijo=False,
+            gtol_relative=True, ptol_relative=True, graph=graph,
+            graphs=graphs)
+        return c
+
+    def graph_equals_eager(R, graphs, captures):
+        before = collections.Counter(inner.STATS)
+        cg = run(R, True, graphs)
+        d = collections.Counter(inner.STATS)
+        d.subtract(before)
+        assert d["captures"] == d["pooled_captures"] == captures
+        assert d["capture_frees"] == 0
+        ce = run(R, False)
+        assert cg.steps == ce.steps == 25
+        assert cg.lbfgs.head == ce.lbfgs.head
+        for x, y in zip(fields(cg), fields(ce)):
+            assert torch.equal(x, y)
+
+    R3 = R6[:, :3].contiguous()
+    graphs, other = inner.InnerGraphs(), inner.InnerGraphs()
+    graph_equals_eager(R6, graphs, 1)      # builds the pool
+    graph_equals_eager(R3, graphs, 1)      # a new key: the second capture
+    graph_equals_eager(R3, graphs, 0)      # the same graph, replayed
+    graph_equals_eager(R6, other, 1)       # releases graphs' rank-3 graph
+    graph_equals_eager(R3, graphs, 1)      # so it captures again
+
+
+@pytest.mark.cuda
 def test_launch_counters_count_every_replay(h100):
     """gather_rows launches and ELL SpMMs under replay: each replay adds
     what one capture launched (K steps, one SpMM each, on the
@@ -927,7 +977,9 @@ def test_launch_counters_count_every_replay(h100):
 def test_spans_of_fast_diagonal_solves_on_the_card(h100, tmp_path):
     """Two fast-diagonal solves under the profiler: an
     ``sdplr.inner.capture`` in each solve (each solve captures its own
-    inner chunk, one per rank it runs at), and device kernels whose
+    inner chunk, one per rank it runs at; the second solve's one capture
+    goes into the kept pool and frees no device memory), and device
+    kernels whose
     launching runtime call lies inside an ``sdplr.inner`` span, matched
     by the trace's correlation ids (a replay's kernels go to its
     cudaGraphLaunch)."""
@@ -943,11 +995,21 @@ def test_spans_of_fast_diagonal_solves_on_the_card(h100, tmp_path):
               dtype="float32", seed=0, printlevel=0, dense_mode=False)
     sdplr(C, As, b, 10, **kw)             # builds and loads the kernels
     inner.STATS.clear()
+    res, per_solve = [], []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        res = [sdplr(C, As, b, 10, **dict(kw, seed=s)) for s in (1, 2)]
+        for s in (1, 2):
+            before = collections.Counter(inner.STATS)
+            res.append(sdplr(C, As, b, 10, **dict(kw, seed=s)))
+            per_solve.append(collections.Counter(inner.STATS))
+            per_solve[-1].subtract(before)
         torch.cuda.synchronize()
     assert all(r["inner_engine"] == ENGINE_FAST for r in res)
+    # the second solve captures into the pool the first one used, and
+    # its captures return no memory to the driver
+    second = per_solve[1]
+    assert second["captures"] == second["pooled_captures"] == 1
+    assert second["capture_frees"] == 0
     path = str(tmp_path / "trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
